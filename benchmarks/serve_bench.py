@@ -1,10 +1,9 @@
-"""Serving-path throughput row: streaming WAV->WAV vs one-shot (weak #8).
+"""Serving-path throughput row: streaming WAV->WAV vs one-shot.
 
 Measures what serve.py claims: bounded-memory chunked streaming overlapping
 host decode with device compute, at a throughput comparable to the one-shot
 path (which must hold the whole stream in RAM). Wall-clock end-to-end
-including file IO on both sides — deliberately NOT K-differential; serving
-is a wall-clock story.
+including file IO on both sides; serving is a wall-clock story.
 
 Usage: python benchmarks/serve_bench.py [--total 64000000] [--chunk 4194304]
 """

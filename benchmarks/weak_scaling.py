@@ -5,8 +5,8 @@ multi-chip hardware this script measures it directly; on a single chip it
 degenerates to the 1-device row, and under the virtual CPU mesh
 (XLA_FLAGS=--xla_force_host_platform_device_count=8 with jax_platforms=cpu)
 it exercises the collective path and reports *algorithmic* scaling (virtual
-devices share one socket, so treat CPU numbers as a smoke check, not ICI
-performance).
+devices share one socket, so treat CPU numbers as a smoke check, not
+interconnect performance).
 
 Each row holds the per-device problem size fixed (weak scaling): N = d *
 per_device samples, window 1024 stereo. Efficiency = throughput(d) /
@@ -35,7 +35,7 @@ import numpy as np
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 
-def measure(mesh, n, use_pallas, window=1024, channels=2, k1=2, k2=8):
+def measure(mesh, n, window=1024, channels=2, k1=2, k2=8):
     import jax
 
     from digital_signal_processsing_tpu.parallel import (
@@ -64,9 +64,7 @@ def measure(mesh, n, use_pallas, window=1024, channels=2, k1=2, k2=8):
         @jax.jit
         def f(v):
             def body(i, y):
-                return sharded_moving_average(
-                    y, window, channels, mesh=mesh, use_pallas=use_pallas
-                )
+                return sharded_moving_average(y, window, channels, mesh=mesh)
 
             return jax.lax.fori_loop(0, k, body, v)
 
@@ -104,9 +102,12 @@ def _row(mode, d, n, sps, base):
 
 
 def _worker(pid: int, nproc: int, port: int, per_device: int) -> int:
-    """One jax.distributed process of the --two-process measurement."""
+    """One jax.distributed process of the --two-process measurement. Held
+    to the CPU: a JAX process reserves most of a GPU's memory, so several
+    cannot share one card."""
     import os
 
+    os.environ["JAX_PLATFORMS"] = "cpu"
     os.environ["XLA_FLAGS"] = (
         os.environ.get("XLA_FLAGS", "")
         + " --xla_force_host_platform_device_count=4"
@@ -122,7 +123,7 @@ def _worker(pid: int, nproc: int, port: int, per_device: int) -> int:
     topo = initialize_multihost(f"localhost:{port}", nproc, pid)
     d = topo["global_devices"]
     mesh = make_mesh(n_time=d)
-    sps = measure(mesh, per_device * d, use_pallas=False)
+    sps = measure(mesh, per_device * d)
     if pid == 0:
         print("WORKER_ROW " + json.dumps({"devices": d, "sps": sps}), flush=True)
     return 0
@@ -131,6 +132,7 @@ def _worker(pid: int, nproc: int, port: int, per_device: int) -> int:
 def _two_process_row(per_device: int, base: float) -> dict:
     """Spawn 2 jax.distributed workers (4 virtual devices each); return the
     8-device row measured across the process boundary."""
+    import os
     import socket
     import subprocess
 
@@ -151,6 +153,7 @@ def _two_process_row(per_device: int, base: float) -> dict:
             stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT,
             text=True,
+            env={**os.environ, "JAX_PLATFORMS": "cpu"},
         )
         for pid in range(2)
     ]
@@ -204,15 +207,14 @@ def main(argv=None):
 
     ndev = jax.device_count()
     backend = jax.default_backend()
-    use_pallas = backend == "tpu"
-    mode = f"virtual_{backend}_mesh" if backend != "tpu" else "tpu_mesh"
+    mode = f"virtual_{backend}_mesh" if backend == "cpu" else f"{backend}_mesh"
     sizes = [d for d in (1, 2, 4, 8, 16, 32) if d <= ndev]
     base = None
     rows = []
     for d in sizes:
         mesh = make_mesh(n_time=d, devices=np.asarray(jax.devices()[:d]))
         n = args.per_device * d
-        sps = measure(mesh, n, use_pallas)
+        sps = measure(mesh, n)
         if base is None:
             base = sps
         rows.append(_row(mode, d, n, sps, base))

@@ -7,7 +7,7 @@ audio out (the reference commented its writeSamples calls out "for
 profiling", profilable_sm_vload4.cu:216-217 — a framework should do both).
 
     python -m digital_signal_processsing_tpu input.wav 16 --out smooth.wav
-    python -m digital_signal_processsing_tpu input.wav 1024 --method scan \
+    python -m digital_signal_processsing_tpu input.wav 1024 --method xla_scan \
         --bench --csv results.csv
 """
 
@@ -23,14 +23,7 @@ def main(argv=None) -> int:
     )
     p.add_argument("wav_path")
     p.add_argument("grade", type=int, help="moving-average window in frames")
-    p.add_argument(
-        "block_size",
-        type=int,
-        nargs="?",
-        default=None,
-        help="tile rows override (the reference's CUDA block-size knob)",
-    )
-    p.add_argument("--method", default="auto", help="averager variant")
+    p.add_argument("--method", default="auto", help="averager method")
     p.add_argument("--out", default=None, help="write filtered WAV here")
     p.add_argument("--bench", action="store_true", help="print phase timings")
     p.add_argument("--csv", default=None, help="append a CSV row here")
@@ -40,64 +33,21 @@ def main(argv=None) -> int:
 
     from .io import read_wav, write_wav
     from .ops import moving_average
+    from .utils.cache import enable_persistent_cache
 
+    enable_persistent_cache()
     info, samples = read_wav(args.wav_path)
-    kw = {}
-    if args.block_size and args.method in (
-        "windowed",
-        "scan",
-        "scan_hillis",
-        "scan_mxu",
-        "direct",
-    ):
-        if args.block_size % 16 != 0:
-            print("Error: block size must be a multiple of 16", file=sys.stderr)
-            return 1
-        kw["tile_rows"] = args.block_size
-
     if args.bench or args.csv:
         import functools
 
         from .harness import CsvLogger, time_phases
-        from .ops.pallas_direct import direct_averager_pallas
-        from .ops.pallas_scan import scan_averager_pallas
 
-        if args.method == "windowed":
-            from .ops.pallas_scan import windowed_averager_pallas
-
-            fn = functools.partial(
-                windowed_averager_pallas,
-                window=args.grade,
-                channels=info.num_channels,
-                **kw,
-            )
-        elif args.method in ("scan", "scan_hillis", "scan_mxu"):
-            variant = {
-                "scan": "blelloch",
-                "scan_hillis": "hillis_steele",
-                "scan_mxu": "mxu",
-            }[args.method]
-            fn = functools.partial(
-                scan_averager_pallas,
-                window=args.grade,
-                channels=info.num_channels,
-                variant=variant,
-                **kw,
-            )
-        elif args.method == "direct":
-            fn = functools.partial(
-                direct_averager_pallas,
-                window=args.grade,
-                channels=info.num_channels,
-                **kw,
-            )
-        else:
-            fn = functools.partial(
-                moving_average,
-                window=args.grade,
-                channels=info.num_channels,
-                method=args.method,
-            )
+        fn = functools.partial(
+            moving_average,
+            window=args.grade,
+            channels=info.num_channels,
+            method=args.method,
+        )
         res = time_phases(fn, samples)
         print(f"--- {args.method} averager ---")
         print(f"total samples: {samples.size}")
@@ -105,13 +55,7 @@ def main(argv=None) -> int:
         res.print_stats(samples.size, 2)
         if args.csv:
             CsvLogger(args.csv).log(
-                args.method,
-                "staged",
-                samples.size,
-                args.grade,
-                args.block_size or 0,
-                res,
-                2,
+                args.method, "staged", samples.size, args.grade, 0, res, 2
             )
         out = np.asarray(fn(samples))
     else:

@@ -2,7 +2,7 @@
 
 ``from digital_signal_processsing_tpu import compat as signal`` gives a
 namespace whose callables carry scipy.signal's NAMES AND SIGNATURES, so
-scipy-written DSP code runs against this framework's TPU-first engines
+scipy-written DSP code runs against this framework's engines
 unchanged. Three kinds of members:
 
 1. direct re-exports — functions implemented scipy-compatible from the
@@ -586,7 +586,7 @@ def _upfirdn_len(len_h, len_x, up, down):
 def resample_poly(x, up, down, axis=-1, window=("kaiser", 5.0)):
     """Polyphase resampling with scipy.signal.resample_poly's signature
     and EXACT output (scipy's kaiser filter, delay-compensating pad, and
-    trim recipe on the native MXU upfirdn)."""
+    trim recipe on the native banded upfirdn)."""
     from .ops.fir import firwin as _firwin
     from .ops.resample import upfirdn as _upfirdn
 

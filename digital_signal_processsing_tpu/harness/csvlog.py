@@ -12,7 +12,7 @@ replicate"): ONE canonical filename (the reference's binaries wrote
 ``benchmark_data.csv`` while its logger default and sweep banner said
 ``benchmark_results.csv`` — gpu_utils.h:172 vs run_benchmarks.py:115).
 Append-mode with header-on-create is kept (gpu_utils.h:188) so interrupted
-sweeps keep prior rows. ``MemoryMode`` carries the TPU staging mode
+sweeps keep prior rows. ``MemoryMode`` carries the device staging mode
 (``device_put`` vs ``donated``) in place of Standard/Unified.
 """
 

@@ -4,7 +4,7 @@ The serving-side input pipeline the reference's one-WAV-per-run design
 implies but never built: iterate fixed-size interleaved chunks across a
 list of WAV files as one continuous stream (file boundaries are seamless,
 matching how the streaming ops carry state), decode on a background thread,
-and optionally stage to device one step ahead so host IO overlaps TPU
+and optionally stage to device one step ahead so host IO overlaps device
 compute. Uses the native C++ codec when built, NumPy otherwise.
 """
 
@@ -59,9 +59,8 @@ class WavChunkLoader:
 
     ``packed=True`` yields the int32 little-endian PAIR view of each chunk
     instead (``chunk.view(np.int32)`` — free on the host, half the array
-    count over the transport). Downstream, ``moving_average`` dispatches
-    int32 input straight to the packed windowed kernel — int32 VMEM tiles
-    move at ~637 GB/s on v5e where int16 tiles relayout at ~358 GB/s.
+    count over the transport). Downstream, ``moving_average`` takes int32
+    input as this pair view and unpacks it on the device.
     Requires ``chunk_samples % 256 == 0`` (lane-aligned pair count).
     """
 

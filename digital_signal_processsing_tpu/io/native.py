@@ -1,7 +1,7 @@
 """ctypes bindings to the native host runtime (native/dsp_native.cpp).
 
 Provides the fast WAV codec and the C++ serial averager baseline (the
-reference's profilable_moving_averager.cpp equivalent) for honest CPU-vs-TPU
+reference's profilable_moving_averager.cpp equivalent) for honest CPU-vs-device
 benchmark rows. Auto-builds with make on first use if a toolchain is
 present; every entry point has the pure-NumPy fallback in io/wav.py and
 golden/reference.py, so the framework works without a compiler.

@@ -8,7 +8,7 @@ empty result; we raise, which is the failure mode a framework wants).
 
 Samples are returned as a flat interleaved int16 NumPy array. A widened
 reader (int64) mirrors ``extractSamples64`` (wav_header.h:62-84), which the
-reference's scan variants used to avoid cumsum overflow — our TPU scan path
+reference's scan variants used to avoid cumsum overflow — our scan path
 doesn't need the widening (int32 modular scan, utils/numerics.py) but the
 API parity is kept for users of the reference.
 

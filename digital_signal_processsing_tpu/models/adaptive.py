@@ -5,7 +5,7 @@ The framework's gradient path: learn FIR taps theta minimizing
 optax so the same code runs single-chip or sharded. The sharded train step
 shards independent streams over the mesh ``ch`` axis (data parallel) and
 time over ``t`` (sequence parallel); gradients are combined with ``psum``
-over both axes — exactly the collective layout a production TPU training
+over both axes — exactly the collective layout a production training
 step uses, applied to DSP.
 """
 
@@ -123,11 +123,11 @@ def identify_system(
 # --- frequency-tracking notch (round 3) ----------------------------------------
 #
 # Classic adaptive-notch-filter demos adapt per sample (an LMS loop on the
-# notch frequency), which is irreducibly sequential. The TPU-idiomatic
+# notch frequency), which is irreducibly sequential. The parallel
 # spelling is BLOCK-adaptive: estimate the interferer frequency per frame
 # (windowed DFT peak with parabolic interpolation — all batched matmuls),
 # design the per-frame notch rows in-graph, and run them through the
-# time-varying SOS kernel (ops.iir.sosfilt_tv_frames). Tracking latency is
+# time-varying SOS scan (ops.iir.sosfilt_tv_frames). Tracking latency is
 # one frame instead of one sample; rejection depth matches the per-sample
 # loop once locked.
 
@@ -213,14 +213,14 @@ def tracking_notch(
 
 # --- sample-recursive adaptive filters (round 3) -------------------------------
 #
-# The block-LMS trainer above is the TPU-idiomatic spelling (gradients
+# The block-LMS trainer above is the parallel spelling (gradients
 # over long blocks, batched streams). The classic SAMPLE-recursive
 # algorithms below exist for the workloads that need per-sample tracking
 # (echo cancellation, channel equalization with fast fading): the
-# recursion is irreducibly sequential, so the TPU answer is lax.scan with
+# recursion is irreducibly sequential, so the answer is lax.scan with
 # the BATCH of independent streams vectorized — lanes stay full even
 # though time is serial. State is tiny (taps + (for RLS) a p x p inverse
-# correlation), so everything lives in registers/VMEM across the scan.
+# correlation), so everything stays on chip across the scan.
 
 
 @functools.partial(jax.jit, static_argnames=("num_taps",))

@@ -1,24 +1,25 @@
 """The averager variant zoo: the reference's nine binaries as one registry.
 
-Maps every reference executable (SURVEY.md §0 census) to its TPU-native
-equivalent, with the architectural correspondence recorded. Used by the
-sweep driver and by docs; `run_variant` is the single entry point.
+Maps every reference executable (SURVEY.md §0 census) to the method of
+``ops.moving_average`` that stands for it here, with the correspondence
+recorded. Used by docs and the sweep; `run_variant` is the single entry
+point.
 
-| reference binary (basics/)            | zoo key       | TPU realization |
-|---------------------------------------|---------------|-----------------|
+| reference binary (basics/)            | zoo key       | realization here |
+|---------------------------------------|---------------|------------------|
 | profilable_moving_averager.cpp        | golden_cpu    | NumPy oracle (+ native C++ baseline binary) |
-| profilable_parallel_averager.cu       | xla_direct    | lax.reduce_window (compiler-scheduled naive) |
-| profilable_sm_averager.cu             | direct        | Pallas VMEM-tile k-shifted-adds |
-| profilable_sm_vload2.cu               | direct        | same kernel — (8,128) layout subsumes int2 |
-| profilable_sm_vload4.cu               | direct        | same kernel — (8,128) layout subsumes int4 |
-| hillis_steele_averager.cu             | scan_hillis   | Pallas stride-doubling segmented scan |
-| hillis_steele_vloaded_averager.cu     | scan_hillis   | same kernel — vectorization is the default |
-| blelloch_scan_averager.cu             | scan          | Pallas work-efficient two-level scan |
-| blelloch_scan_vloaded_averager.cu     | scan          | same kernel |
+| profilable_parallel_averager.cu       | xla_direct    | lax.reduce_window (compiler-scheduled O(k)) |
+| profilable_sm_averager.cu             | direct        | the same reduce_window: XLA tiles it |
+| profilable_sm_vload2.cu               | direct        | same — XLA picks the vector width |
+| profilable_sm_vload4.cu               | direct        | same |
+| hillis_steele_averager.cu             | scan_hillis   | jnp.cumsum + windowed difference |
+| hillis_steele_vloaded_averager.cu     | scan_hillis   | same |
+| blelloch_scan_averager.cu             | scan          | ``auto``: the windowed GPU kernel on a GPU, else the cumsum |
+| blelloch_scan_vloaded_averager.cu     | scan          | same |
 
-The int2/int4 "vload" rungs and the vectorized scan rungs collapse: on TPU
-the register file is always (sublanes x 128 lanes), so the vectorized load
-ladder has no separate existence (SURVEY.md §7).
+The shared-memory, vectorized-load and in-block scan rungs are spellings
+of one algorithm that XLA (or the windowed kernel, ops/pallas_windowed.py)
+schedules itself, so they map onto the method that does their work.
 """
 
 from __future__ import annotations
@@ -54,7 +55,7 @@ AVERAGER_ZOO: dict[str, VariantInfo] = {
         ),
         VariantInfo(
             "direct",
-            "direct",
+            "xla_direct",
             (
                 "basics/profilable_sm_averager.cu",
                 "basics/profilable_sm_vload2.cu",
@@ -65,23 +66,23 @@ AVERAGER_ZOO: dict[str, VariantInfo] = {
         ),
         VariantInfo(
             "scan_hillis",
-            "scan_hillis",
+            "xla_scan",
             (
                 "basics/hillis_steele_averager.cu",
                 "basics/hillis_steele_vloaded_averager.cu",
             ),
-            "O(log n) passes, O(n log n) work",
-            "ladder rung: demonstrates work-inefficiency cost",
+            "O(n) work, compiler-chosen scan",
+            "ladder rung: the plain prefix-sum spelling",
         ),
         VariantInfo(
             "scan",
-            "scan",
+            "auto",
             (
                 "basics/blelloch_scan_averager.cu",
                 "basics/blelloch_scan_vloaded_averager.cu",
             ),
-            "O(log) passes, O(n) work",
-            "large windows (compute regime); the flagship",
+            "O(n) work, one pass",
+            "every window; the flagship",
         ),
         VariantInfo(
             "xla_scan",

@@ -6,17 +6,17 @@ uniform linear array turned into spatial spectra (Bartlett / MVDR /
 MUSIC) and source bearings. North-star scope like models/radar.py — the
 CUDA reference has no array processing (SURVEY.md §2: single-primitive
 study) — but every stage is the framework's bread and butter: the sample
-covariance is ONE (M, T)x(T, M) MXU matmul, the scan-grid spectra are
+covariance is ONE (M, T)x(T, M) matmul, the scan-grid spectra are
 (2M, A) matmuls, and subspace estimation rides a real-symmetric eigh.
 
-TPU-first choices:
-- planar I/Q at every boundary (complex64 host<->device is unimplemented
-  on the target platform — BENCH_NOTES Methodology); device math uses the
+Design choices:
+- planar I/Q at every boundary; device math uses the
   REAL EMBEDDING of complex Hermitian algebra: R = Rr + jRi maps to the
   real-symmetric C(R) = [[Rr, -Ri], [Ri, Rr]] (2M, 2M), a = ai + jaq maps
   to [ai; aq], and a^H R a, R^{-1} a, eigenspaces all commute with the
-  embedding. Real-symmetric eigh / Cholesky are the forms XLA lowers well
-  on TPU; complex eigh is not.
+  embedding. Real-symmetric eigh / Cholesky were chosen for the earlier
+  accelerator, where complex eigh lowered poorly (ROADMAP queue 1, item 8
+  asks whether complex eigh wins on the GPU).
 - snapshot covariance, diagonal loading, forward-backward averaging and
   all three spectra are jitted, static-shaped and batched; bearing
   extraction (tiny top-K peak pick) stays on host like the other
@@ -143,7 +143,7 @@ def sample_covariance(
 ) -> tuple[jax.Array, jax.Array]:
     """Planar sample covariance R = X X^H / T from (M, T) snapshots.
 
-    One MXU matmul per planar part: Rr = (Xi Xi^T + Xq Xq^T)/T,
+    One matmul per planar part: Rr = (Xi Xi^T + Xq Xq^T)/T,
     Ri = (Xq Xi^T - Xi Xq^T)/T. ``forward_backward=True`` averages in the
     flipped-conjugate copy J conj(R) J (persymmetric smoothing — rank
     restoration for coherent multipath at zero extra snapshots cost).
@@ -490,8 +490,7 @@ def wideband_music_spectrum(
     band: tuple[float, float] = (0.05, 0.45),
     window: str = "hann",
 ) -> jax.Array:
-    """Incoherent wideband MUSIC: STFT each sensor (the MXU-DFT engine on
-    TPU), per-bin sample covariance over frames (one einsum), per-bin
+    """Incoherent wideband MUSIC: STFT each sensor, per-bin sample covariance over frames (one einsum), per-bin
     noise subspace via a BATCHED real-embedded eigh, per-bin
     frequency-scaled steering, and the normalized pseudospectra averaged
     over the band. (M, T) real snapshots -> (n_grid,) spectrum.

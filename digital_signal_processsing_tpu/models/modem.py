@@ -4,13 +4,13 @@ Third communications model family beside the FM chain (continuous-stream
 demod, models/chain.py) and the OFDM receiver (framed spectra,
 models/ofdm.py): the classic single-carrier linear link — Gray-mapped
 square QAM through root-raised-cosine pulses — exercising the framework's
-interpolating MXU conv (ops.resample.upfirdn), matched filtering
+interpolating conv (ops.resample.upfirdn), matched filtering
 (ops.fir.fir_filter), spectral estimation and small-solve pieces end to
 end. North-star scope like models/ofdm.py (the CUDA reference has no
 comms models; SURVEY.md §6).
 
-TPU-first choices:
-- pulse shaping and matched filtering ride the banded MXU tap matrix —
+Design choices:
+- pulse shaping and matched filtering ride the banded tap matrix —
   never an lhs-dilated or single-feature conv (the 1/128-utilization trap);
 - NO sample-serial synchronization loops: timing is the Oerder-Meyr
   cyclic-spectral estimate (one |y|^2 reduction against one complex
@@ -18,8 +18,8 @@ TPU-first choices:
   recovery is a coarse 4th-power spectral line plus a data-aided phase
   slope over the preamble — every stage a batched reduction;
 - the equalizer is a one-shot ridge-regularized least-squares solve on the
-  preamble (normal equations in real block form, one small dense solve on
-  the MXU) instead of a serial adaptive pass;
+  preamble (normal equations in real block form, one small dense solve)
+  instead of a serial adaptive pass;
 - planar I/Q at every host<->device boundary (complex64 transfers are
   second-class on some PJRT backends); complex forms on device via
   lax.complex.
@@ -63,15 +63,14 @@ class ModemConfig:
     eq_ridge: float = 1e-4
     dd_block: int = 32  # decision-directed phase-tracking block (symbols)
     # scan unroll for the tracking loop. Bit-identical at any value (same op
-    # sequence, fewer loop-machinery iterations); 4 measured best on chip —
-    # tracker standalone 2.32 vs 4.27 ms at unroll 1, and 8/16 regress
-    # (logs/r5_onchip/r5_modem_unroll.log)
+    # sequence, fewer loop-machinery iterations); 4 was chosen on the
+    # earlier accelerator and is not yet measured on a GPU
     dd_unroll: int = 4
     # phase tracker engine: "dd" = serial decision-directed scan,
     # "vv" = parallel smoothed power-m + unwrap + parallel DD refine
     # (_vv_phase_track — no serial loop). Engines differ in cycle-slip
-    # statistics at the waterfall bottom; the default follows the measured
-    # waterfall A/B (benchmarks/r5_modem_vv.py).
+    # statistics at the waterfall bottom; the default keeps the serial
+    # engine (ROADMAP design debt 4).
     tracker: str = "dd"
     vv_smooth: int = 5  # blocks averaged per coarse power-m estimate
     vv_refine: int = 2  # parallel decision-directed refine rounds
@@ -171,7 +170,7 @@ def preamble_symbols(cfg: ModemConfig) -> np.ndarray:
 def transmit(cfg: ModemConfig, bits) -> tuple[np.ndarray, np.ndarray]:
     """[preamble | payload] -> RRC-shaped planar (i, q) at sps rate.
 
-    The zero-stuffing interpolation is ops.resample.upfirdn's banded MXU
+    The zero-stuffing interpolation is ops.resample.upfirdn's banded
     tap matrix; output length (n_sym - 1) * sps + rrc_num_taps.
     """
     syms = np.concatenate(
@@ -257,7 +256,7 @@ def _oerder_meyr(y: jax.Array, sps: int) -> tuple[jax.Array, jax.Array]:
 
 def _preamble_sync(r: jax.Array, pre: np.ndarray) -> jax.Array:
     """argmax |<r[k:k+P], pre>| over k — one planar complex valid
-    correlation through ops.correlate's MXU-DFT engine."""
+    correlation through ops.correlate's matmul-DFT engine."""
     from ..ops.correlate import correlate_complex
 
     c_re, c_im = correlate_complex(
@@ -324,7 +323,7 @@ def _dd_phase_track(
     Preamble-only frequency estimates bottom out near the 64-symbol CRB
     (~4e-5 cycles/symbol), which still rotates a 1000-symbol payload tens
     of degrees — so the payload itself must carry the tracking, as in any
-    burst receiver. TPU spelling: a first-order phase loop at BLOCK
+    burst receiver. Spelling: a first-order phase loop at BLOCK
     granularity — each step is a full-block batched reduction (decisions,
     one conj-product sum, one atan2), and the serial dimension is only
     n_symbols/block iterations of lax.scan. Known symbols (the preamble)
@@ -355,8 +354,7 @@ def _dd_phase_track(
         return phi + e, (r1 * ce + i1 * se, i1 * ce - r1 * se)
 
     # unroll: same op sequence (bit-identical output), fewer loop-machinery
-    # iterations — the scan is latency-bound at (block,) shapes (BENCH_NOTES
-    # round-5 family rows: the modem row is scan-bound)
+    # iterations — the scan is latency-bound at (block,) shapes
     _, (out_r, out_i) = jax.lax.scan(
         body, jnp.float32(0.0), (yr, yi, kr, ki, km), unroll=unroll
     )
@@ -375,9 +373,8 @@ def _vv_phase_track(
 ) -> jax.Array:
     """Parallel blockwise phase tracking (no serial loop at all).
 
-    The DD scan (:func:`_dd_phase_track`) is latency-bound: ~2 us/block of
-    loop-step launch cost x n/block sequential steps is 90% of the whole
-    receive path (BENCH_NOTES round-5 modem tracker section). This engine
+    The DD scan (:func:`_dd_phase_track`) is latency-bound: a loop-step
+    launch cost x n/block sequential steps. This engine
     replaces the serial dependency with four batched passes:
 
     1. **Coarse, decision-free per-block phase**: the power-m estimator
@@ -397,7 +394,7 @@ def _vv_phase_track(
     Same signature/output contract as the DD scan. The engines differ in
     lock behavior at the waterfall's bottom (cycle-slip statistics), so the
     default router keeps DD unless measurement shows parity — see
-    ModemConfig.tracker and benchmarks/r5_modem_vv.py.
+    ModemConfig.tracker.
     """
     n = eq.shape[-1]
     nb = -(-n // block)

@@ -6,7 +6,7 @@ OFDM is framed spectra, exercising the framework's framing
 (utils.layout.overlapping_frames), FFT, oscillator and correlation pieces
 end to end.
 
-TPU-first choices:
+Design choices:
 - planar I/Q throughout (complex64 transfers are second-class on some PJRT
   backends); complex values form on device via lax.complex;
 - symbol framing via shifted reshapes (overlapping_frames), never gathers;

@@ -2,16 +2,16 @@
 
 Fourth model family beside the FM chain, OFDM and the QAM modem: the
 sensing counterpart — a coherent processing interval of LFM pulses turned
-into a range-Doppler detection map. Exercises the framework's MXU-DFT
+into a range-Doppler detection map. Exercises the framework's
 correlator (ops.correlate: fast-time matched filter), window catalog
 (slow-time taper), batched FFT and the moving-sum machinery in two
 dimensions (CA-CFAR noise estimation = box sums over the range-Doppler
 map — the headline averager family's 2-D shape). North-star scope like
 models/ofdm.py (the CUDA reference has no radar models; SURVEY.md §6).
 
-TPU-first choices:
+Design choices:
 - fast-time matched filtering of ALL pulses in one batched planar
-  correlation (4 real correlations through the MXU-DFT engine) — never a
+  correlation (4 real correlations through one engine) — never a
   per-pulse loop;
 - slow-time Doppler as one batched FFT over the pulse axis;
 - CA-CFAR with exact edge handling: training-cell sums AND per-cell
@@ -117,9 +117,7 @@ def pulse_compress(cfg: RadarConfig, i: jax.Array, q: jax.Array) -> jax.Array:
     """Fast-time matched filter: valid correlation of every pulse with the
     transmit chirp, all pulses in one batched planar complex correlation
     (ops.correlate.correlate_complex — at production shapes its auto picks
-    the lane-blocked banded-MXU direct conv, 5.0x the full-length DFT
-    round trip at (64, 1M)/128 taps; detect end-to-end 0.82 -> 1.31 GS/s,
-    r4_postfix_rows.log).
+    the lane-blocked banded direct conv).
     A point echo of amplitude a at range bin r peaks at output bin r with
     amplitude a (unit-energy chirp), while noise is spread — the
     sqrt(pulse_len) SNR compression gain."""
@@ -155,9 +153,8 @@ def doppler_map(cfg: RadarConfig, rc: jax.Array) -> jax.Array:
     (n_pulses dopplers, n_bins ranges). Doppler f maps to row
     n_pulses//2 + round(f * n_pulses).
 
-    The pulse count is small (tens to hundreds), so the TPU-first spelling
-    is NOT an FFT (XLA's TPU FFT is HBM-bound and slow — BENCH_NOTES) but
-    one dense (P, P) x (P, n_bins) DFT matmul pair on the MXU with the
+    The pulse count is small (tens to hundreds), so the spelling is NOT
+    an FFT but one dense (P, P) x (P, n_bins) DFT matmul pair with the
     taper and fftshift folded into the matrix; for large P it falls back
     to the batched FFT. Both spellings are numerically identical up to
     matmul precision (pinned by tests)."""
@@ -182,10 +179,9 @@ def doppler_map(cfg: RadarConfig, rc: jax.Array) -> jax.Array:
 def _box_sum(a: jax.Array, hd: int, hr: int) -> jax.Array:
     """Zero-filled centered 2-D box sum, separable: banded (D, D) matmul
     over the (small) doppler axis x centered boxcar FIR over the (long)
-    range axis. The round-3 spelling ran four dense 2-D convs through a
-    single-feature conv (533 taps at the default config) — the classic
-    1/128-MXU pattern; this one is two matmuls + two banded MXU FIRs
-    (r4_radar_profile.log)."""
+    range axis: two matmuls + two banded FIRs, where four dense 2-D convs
+    through a single-feature conv (533 taps at the default config) would
+    leave the feature dims at 1."""
     from ..ops.fir import fir_direct
 
     d = a.shape[0]
@@ -236,7 +232,7 @@ def _cfar_core(
     inner_sum = _box_sum(p, gd, gr)
     # counts stay as FOUR 1-D host constants broadcast on device — an
     # (D, R) host-side outer product would ride the HLO as a giant
-    # constant (the r3 HTTP-413 trap, BENCH_NOTES)
+    # constant
     n = jnp.asarray(count_d[0])[:, None] * jnp.asarray(count_r[0])[None, :] - (
         jnp.asarray(count_d[1])[:, None] * jnp.asarray(count_r[1])[None, :]
     )
@@ -297,11 +293,10 @@ def ambiguity(
     ``n_doppler`` points spanning +-2/L — two Doppler resolution cells),
     and the (n_doppler, 2L-1) float32 surface.
 
-    TPU-first: the whole surface is ONE batched planar complex
+    The whole surface is ONE batched planar complex
     correlation (``ops.correlate.correlate_complex``) of the
     Doppler-shifted bank u * e^{j 2 pi nu n} against u — no per-delay
-    loops; the Doppler bank rides broadcasting and the correlation rides
-    the complex MXU-DFT engine.
+    loops; the Doppler bank rides broadcasting.
     """
     from ..ops.correlate import correlate_complex
 
@@ -357,22 +352,16 @@ def detect(cfg: RadarConfig, i: jax.Array, q: jax.Array):
     Returns (detections, power, threshold): boolean (n_pulses, n_bins)
     range-Doppler detections plus the underlying map and CFAR threshold.
 
-    Round-4 measured composition facts (r4_radar_align.log): the
-    matched filter's 'valid' slice starts at lane offset pulse_len-1 —
-    a misaligned minor axis that every downstream op pays relayout for
-    (6.7 ms at 64x1M). The chain therefore correlates in 'full' mode
-    (aligned start) and takes the tail slice on the final power map —
-    bit-identical output (parity 0.0 on chip), 1.37x. A planar
-    matched-filter -> Doppler hand-off was also A/B'd and changed
-    nothing (XLA already fuses the complex round trip,
-    r4_radar_profile.log).
+    The matched filter's 'valid' slice starts at lane offset
+    pulse_len-1 — a misaligned minor axis that every downstream op would
+    pay relayout for. The chain therefore correlates in 'full' mode
+    (aligned start) and takes the tail slice on the final power map, with
+    bit-identical output.
     """
     from ..ops.correlate import correlate_complex
 
     pr, pi_ = lfm_pulse(cfg)
-    # round-5: Gauss 3-multiplication matched filter — 3 banded convs
-    # instead of 4 (17.8 vs 20.1 ms/detect at 64x1M, detections EXACT,
-    # 0 flips vs 'direct'; logs/r5_onchip/r5_radar_ab.log)
+    # Gauss 3-multiplication matched filter — 3 banded convs instead of 4
     c_re, c_im = correlate_complex(
         i.astype(jnp.float32),
         q.astype(jnp.float32),

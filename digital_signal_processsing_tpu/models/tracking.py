@@ -7,7 +7,7 @@ association, batched Kalman filtering, M-of-N track management. North-star
 scope like the rest of the model families (the CUDA reference has no
 radar/tracking models; SURVEY.md §6).
 
-TPU-first choices (everything is static-shape and gather-free so the whole
+Design choices (everything is static-shape and gather-free so the whole
 CPI stream rides ONE ``lax.scan``):
 - a FIXED array of track slots (``max_tracks``): states ``(T, 2)``,
   covariances ``(T, 2, 2)``, hit/miss counters — each CPI is one batched
@@ -217,10 +217,9 @@ def tracker_step(
     r = jnp.asarray(r_np)
     eye = jnp.eye(2, dtype=jnp.float32)
     # every contraction here is 2x2-class Kalman algebra: force full-f32
-    # MXU passes. The default (bf16, 8 mantissa bits) drifted covariances
-    # enough over a 16-CPI stream to pull a confirmed track ~3 bins off
-    # its CPU-exact position (round-5 family-row anchor; the measurement
-    # stream itself was bit-identical across platforms).
+    # matmuls. A reduced-precision default (bf16 or TF32) can drift the
+    # covariances enough over a 16-CPI stream to pull a confirmed track
+    # bins off its float32 position.
     hp = jax.lax.Precision.HIGHEST
 
     # Predict (batched over slots; inactive slots carry garbage, masked out

@@ -2,9 +2,8 @@
 
 Classic homomorphic DSP (echo detection, pitch tracking, the cepstral
 face of the LPC envelope in ``ops.lpc``). All spectra ride the package's
-FFT surface; complex spectra stay PLANAR (re, im) on device because
-complex64 transport is unimplemented on this TPU platform (BENCH_NOTES
-r1) — the public API accepts/returns real arrays plus the standard
+FFT surface; complex spectra stay PLANAR (re, im) on device — the public
+API accepts/returns real arrays plus the standard
 ``ndelay`` integer, matching the scipy cookbook / matlab ``rceps`` /
 ``cceps`` conventions. No reference analog (the CUDA study has no
 cepstral surface).

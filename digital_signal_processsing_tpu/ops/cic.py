@@ -1,18 +1,18 @@
-"""CIC (cascaded integrator-comb) multirate filters, TPU-first.
+"""CIC (cascaded integrator-comb) multirate filters.
 
 The CIC is the standard first decimation/interpolation stage of every DDC/
 DUC front end (Hogenauer 1981): N integrators at the high rate, rate change
 R, N combs with differential delay M — multiplier-free in hardware. The
-textbook spelling is 2N sequential recursions; on TPU the mathematically
+textbook spelling is 2N sequential recursions; the mathematically
 identical spelling is ONE FIR whose impulse response is the N-fold
 convolution of length-R*M boxcars, because
 
     H(z) = ((1 - z^{-RM}) / (1 - z^{-1}))^N = (boxcar_{RM}(z))^N.
 
 So decimation rides the framework's measured FIR ladder
-(``ops.fir.fir_filter``: direct MXU conv / fused overlap-save — the same
+(``ops.fir.fir_filter``: direct conv / fused overlap-save — the same
 engines the headline averager family uses) plus a strided slice, and
-interpolation rides the banded-MXU ``upfirdn`` machinery (zero-stuffing
+interpolation rides the banded ``upfirdn`` machinery (zero-stuffing
 folded into the tap matrix). No sequential scans, no modular-arithmetic
 state to carry; parity with the integer integrator-comb reference is
 pinned by tests. Completes the multirate family beside ``ops.resample``
@@ -119,7 +119,7 @@ def cic_interpolate(
     """CIC interpolation by ``rate``: (..., T) -> (..., T*rate) float32.
 
     Zero-stuff by ``rate`` then filter with boxcar^N — one ``upfirdn``
-    call (banded MXU tap matrix), trimmed to exactly T*rate causal
+    call (banded tap matrix), trimmed to exactly T*rate causal
     samples. ``normalize`` divides by (R*M)^N / R so a DC input keeps its
     amplitude through the rate change.
     """

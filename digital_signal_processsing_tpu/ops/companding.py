@@ -5,8 +5,8 @@ G.711 streams in, int16 PCM through the framework, G.711 back out. Exact
 ITU G.711 integer semantics (the Sun Microsystems g711.c reference
 algorithm every implementation reproduces), spelled as vectorized int32
 lane arithmetic — branch ladders become comparison sums and masked
-selects, so encode/decode jit cleanly on TPU and run at VPU speed on full
-tiles. The continuous ``mu_compress``/``mu_expand`` pair is the float
+selects, so encode/decode jit cleanly and run as fused elementwise
+work. The continuous ``mu_compress``/``mu_expand`` pair is the float
 variant ML pipelines use (e.g. WaveNet-style 8-bit targets).
 
 North-star scope beside ``io/wav.py`` (the CUDA reference reads 16-bit PCM

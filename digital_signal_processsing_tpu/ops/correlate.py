@@ -4,7 +4,7 @@ Beyond-reference framework op (the reference has no correlation tooling);
 semantics match ``scipy.signal.correlate`` for real inputs (validated
 against it in tests/test_design_spectral.py::TestCorrelate). Correlation is convolution with the
 flipped template, so one rfft/irfft pair at a padded power-of-two length
-does the whole batch; TPU FFTs prefer pow2 sizes.
+does the whole batch.
 """
 
 from __future__ import annotations
@@ -18,19 +18,11 @@ import numpy as np
 MODES = ("full", "same", "valid")
 
 # Direct-vs-FFT auto crossover for correlate/correlate_complex: the direct
-# path is the lane-blocked banded MXU conv (ops.fir.blocked_causal_conv via
-# fir_direct — the spelling that took the CWT bank 0.078 -> 17.1 GS/s), the
-# FFT path one padded pow2 DFT round trip that processes nfft = 2^ceil(
-# log2(ta+tv-1)) points three times regardless of template length.
-# On-chip A/B, whole-frame rows of record (r4_postfix_rows.log +
-# r4_cc_tails.log; complex valid at (64, 1M)): direct 4.35 vs XLA-FFT
-# 0.87 GS/s at tv=128 (5.0x), 2.13 vs 0.88 at tv=1024 (2.4x), 0.65 vs
-# 0.87 at tv=4096 (FFT wins) -> crossover at the 1024/4096 geometric
-# midpoint; real 'same' at (16, 4M) tv=257: 3.46 vs 0.61 (5.7x,
-# r4_correlate_direct_ab.log — that row padded to a whole frame and is
-# valid; the first A/B's complex rows rode the pre-guard ragged-pad
-# miscompile and are struck, see BENCH_NOTES). Short streams stay on the
-# in-envelope MXU DFT (one factored matmul pass — measured winner r2).
+# path is the lane-blocked banded conv (ops.fir.blocked_causal_conv via
+# fir_direct), the FFT path one padded pow2 DFT round trip that processes
+# nfft = 2^ceil(log2(ta+tv-1)) points three times regardless of template
+# length. The thresholds were set on the earlier accelerator and are not
+# yet measured on a GPU (ROADMAP queue 1, item 4).
 DIRECT_MAX_TAPS = 2048
 DIRECT_MIN_STREAM = 65536
 
@@ -61,7 +53,7 @@ def _resolve_corr_method(
 
 
 def _direct_full_real(a: jax.Array, v: jax.Array, n: int) -> jax.Array:
-    """Full correlation via the banded-MXU causal conv (real planar).
+    """Full correlation via the banded causal conv (real planar).
 
     Correlation is causal convolution with the reversed template over the
     tail-padded stream: conv(a_pad, v[::-1])[t] = sum_m v[m] a[t-tv+1+m]
@@ -71,21 +63,11 @@ def _direct_full_real(a: jax.Array, v: jax.Array, n: int) -> jax.Array:
 
     ta = a.shape[-1]
     batch = a.shape[:-1]
-    # pad to whole 128-lane frames — then FENCE the pad from the conv.
-    # Whole-frame input alone is NOT structurally clear of the XLA-TPU
-    # ragged-pad fusion miscompile: round 5 caught the modem preamble
-    # correlation computing NaNs in the last ~2 tail frames whenever a
-    # downstream equalizer graph changed the fusion context (NaN count 226
-    # at ta=65634, first at valid position 65345; r5 modem bisect,
-    # logs/r5_onchip/r5_family_rows.log) while the same subgraph isolated
-    # was exact. Materializing the padded operand keeps the conv clean;
-    # whole-length inputs (nr == ta) skip the barrier.
+    # pad to whole 128-lane frames
     nr = -(-n // 128) * 128
     xp = jnp.pad(
         a.astype(jnp.float32).reshape(-1, ta), ((0, 0), (0, nr - ta))
     )
-    if nr != ta:
-        xp = jax.lax.optimization_barrier(xp)
     full = fir_direct(xp, jnp.asarray(v, jnp.float32)[::-1])[..., :n]
     return full.reshape(batch + (n,))
 
@@ -93,7 +75,7 @@ def _direct_full_real(a: jax.Array, v: jax.Array, n: int) -> jax.Array:
 def _direct_full_complex(
     ar: jax.Array, ai: jax.Array, vr: jax.Array, vi: jax.Array, n: int
 ) -> tuple[jax.Array, jax.Array]:
-    """Full complex correlation as TWO banded-MXU convs (planar I/Q).
+    """Full complex correlation as TWO banded convs (planar I/Q).
 
     Template h = reversed conj(v); the I and Q streams stack as channels so
     each real conv covers both products: yr = ar*hr - ai*hi,
@@ -103,7 +85,7 @@ def _direct_full_complex(
 
     ta = ar.shape[-1]
     batch = ar.shape[:-1]
-    # whole-frame pad + fusion fence: see _direct_full_real
+    # whole-frame pad: see _direct_full_real
     nr = -(-n // 128) * 128
     x2 = jnp.pad(
         jnp.concatenate(
@@ -115,8 +97,6 @@ def _direct_full_complex(
         ),
         ((0, 0), (0, nr - ta)),
     )
-    if nr != ta:
-        x2 = jax.lax.optimization_barrier(x2)
     c = x2.shape[0] // 2
     hr = jnp.asarray(vr, jnp.float32)[::-1]
     hi = -jnp.asarray(vi, jnp.float32)[::-1]
@@ -135,25 +115,21 @@ def _direct_full_complex_gauss(
     With h = reversed conj(v): m1 = ar*hr, m2 = ai*hi,
     m3 = (ar+ai)*(hr+hi); yr = m1 - m2, yi = m3 - m1 - m2 — THREE banded
     convs of c rows each vs :func:`_direct_full_complex`'s four
-    conv-channel products (25% of the MXU MACs saved on the radar matched
-    filter's ~10.5 ms bound, VERDICT r4 item 6). The recombination is f32
-    adds of ~2x-magnitude intermediates, so the last-ulp rounding can
-    differ from the 4-conv spelling — A/B'd on chip before any default
-    flip (logs/r5_onchip/r5_radar_gauss_ab.log).
+    conv-channel products (25% of the MACs saved on the radar matched
+    filter). The recombination is f32 adds of ~2x-magnitude
+    intermediates, so the last-ulp rounding can differ from the 4-conv
+    spelling.
     """
     from .fir import fir_direct
 
     ta = ar.shape[-1]
     batch = ar.shape[:-1]
-    nr = -(-n // 128) * 128  # whole-frame pad + fence: see _direct_full_real
+    nr = -(-n // 128) * 128  # whole-frame pad: see _direct_full_real
     ar2 = ar.astype(jnp.float32).reshape(-1, ta)
     ai2 = ai.astype(jnp.float32).reshape(-1, ta)
 
     def padded(x):
-        xp = jnp.pad(x, ((0, 0), (0, nr - ta)))
-        if nr != ta:
-            xp = jax.lax.optimization_barrier(xp)
-        return xp
+        return jnp.pad(x, ((0, 0), (0, nr - ta)))
 
     hr = jnp.asarray(vr, jnp.float32)[::-1]
     hi = -jnp.asarray(vi, jnp.float32)[::-1]
@@ -174,8 +150,7 @@ def correlate(
     Real float32; leading axes of ``a`` are batch. Output lengths follow
     scipy.signal.correlate: full = Ta+Tv-1, same = Ta (centered),
     valid = Ta-Tv+1 (requires Ta >= Tv). ``method``: DFT engine (see
-    ops/fft.py) — ``auto`` rides the MXU-factored engine on TPU (the
-    power-of-two pad always sits on its grid).
+    ops/fft.py) — ``auto`` is jnp.fft.
     """
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; options {MODES}")
@@ -322,8 +297,8 @@ def fftconvolve(
     round trip (scipy.signal.fftconvolve, real inputs).
 
     Convolution is correlation with the flipped template — same engine
-    dispatch as :func:`correlate` (MXU-factored DFT on TPU, XLA FFT
-    anchor). ``same`` is centered on ``a`` like scipy.
+    dispatch as :func:`correlate`. ``same`` is centered on ``a`` like
+    scipy.
     """
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; options {MODES}")
@@ -345,10 +320,9 @@ def oaconvolve(
     """Overlap-save convolution for long streams with a short kernel
     (scipy.signal.oaconvolve's role).
 
-    Routes through :func:`ops.fir.fir_filter`'s auto dispatch — the fused
-    per-block VMEM overlap-save Pallas engine on TPU when it wins, the
-    lane-blocked MXU direct conv otherwise — instead of one monolithic
-    length-(Ta+Tv) FFT whose working set busts VMEM. Falls back to
+    Routes through :func:`ops.fir.fir_filter`'s auto dispatch — block
+    overlap-save past the crossover, the lane-blocked direct conv
+    otherwise — instead of one monolithic length-(Ta+Tv) FFT. Falls back to
     :func:`fftconvolve` when the "kernel" is more than half the stream
     (block decomposition stops paying).
     """
@@ -453,9 +427,8 @@ __all__ = [
 def choose_conv_method(in1, in2, mode: str = "full"):
     """Pick 'fft' or 'direct' (scipy.signal.choose_conv_method).
 
-    On TPU the honest boundary is the measured fused-overlap-save
-    crossover (k ~ several thousand, BENCH_NOTES r3), far above scipy's
-    CPU heuristic — this mirrors what :func:`convolve`'s auto dispatch
+    The boundary is fir_filter's direct/overlap-save crossover (k ~ several
+    thousand), far above scipy's CPU heuristic — this mirrors what :func:`convolve`'s auto dispatch
     actually does so callers can introspect it.
     """
     from ..ops import fir as _fir

@@ -102,7 +102,7 @@ def oscillator_bank(
 
     Phase comes from the exact fractional multiply above — pure elementwise
     f32 ops with scalar/iota broadcasts, so XLA fuses it straight into the
-    sin/cos pass (measured 2.2 ms vs 1.8 ms naive on 16x4.2M v5e). The
+    sin/cos pass. The
     naive ``-2π f (t0+n)`` in f32 is 0.2 rad wrong by n ~ 1M at f = 0.373
     and pure noise at shard offsets past 2^24; this stays exact (< 5e-6) at
     ANY stream offset, which is what keeps time-sharded shards

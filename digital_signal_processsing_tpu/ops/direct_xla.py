@@ -2,7 +2,7 @@
 
 The second correctness anchor (beside scan_xla): expresses the O(N·k) direct
 window sum as ``lax.reduce_window`` over the frames axis and lets XLA pick
-the schedule. Analog of profilable_parallel_averager.cu:13-23 the way a TPU
+the schedule. Analog of profilable_parallel_averager.cu:13-23 the way a JAX
 programmer would first write it — no kernel, no tiling decisions.
 """
 

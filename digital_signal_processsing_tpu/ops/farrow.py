@@ -6,7 +6,7 @@ configs[4]'s "polyphase resample" north star, e.g. 44.1k -> 48k or a
 Doppler-corrected irrational ratio) needs output samples at arbitrary
 continuous positions t_m = m / rate of the input timeline.
 
-TPU-first shape, three decisions:
+Shape, three decisions:
 
 1. **Exact integer phase arithmetic.** ``rate`` is snapped once to a
    rational ``up/down`` (``Fraction.limit_denominator(1 << 16)`` — timing
@@ -18,10 +18,9 @@ TPU-first shape, three decisions:
 2. **Pointwise Farrow evaluation, not per-phase tap tables.** Each output
    is the cubic Lagrange combination of 4 neighbors,
    ``y[m] = sum_j c_j(mu_m) * x[n_m + j - 1]`` — four monotone gathers plus
-   a VPU polynomial. A polyphase tap-table spelling needs ``4*up`` taps
-   (up to 2^18 for near-irrational ratios); the pointwise form is
-   rate-independent. (The gathers are the cost to watch on TPU — see
-   BENCH_NOTES.md for the measured row.)
+   an elementwise polynomial. A polyphase tap-table spelling needs
+   ``4*up`` taps (up to 2^18 for near-irrational ratios); the pointwise
+   form is rate-independent.
 3. **One-shot indices are trace-time constants.** For ``resample_farrow``
    the whole index/mu schedule is host-side numpy int64 (exact, unbounded);
    only the streaming path does in-graph int32 phase arithmetic (the chunk
@@ -125,13 +124,12 @@ def resample_farrow(x: jax.Array, rate, *, method: str = "auto") -> jax.Array:
 
     ``method``:
     - ``matmul`` (auto default when ``up*down <= MATMUL_MAX_PRODUCT``):
-      gather-free MXU spelling — input frames of ``down`` samples (+4-tap
-      spill) against a banded (down+8, up) matrix holding the per-phase
-      Lagrange weights; one matmul produces ``up`` outputs per frame.
-      TPU gathers measured 0.03 GS/s at 16M; this path rides the MXU.
-    - ``gather``: the pointwise spelling (any rate, exact schedule) — fast
-      under CPU/interpret, slow on TPU; kept for rates whose exact
-      rational exceeds the matrix envelope. Production arbitrary rates
+      gather-free matmul spelling — input frames of ``down`` samples
+      (+4-tap spill) against a banded (down+8, up) matrix holding the
+      per-phase Lagrange weights; one matmul produces ``up`` outputs per
+      frame.
+    - ``gather`` (auto default beyond the matrix envelope): the pointwise
+      spelling (any rate, exact schedule). Production arbitrary rates
       should snap within it: ``as_rational_rate(rate)`` with a smaller
       denominator changes the rate by < 1e-7 relative.
 
@@ -150,16 +148,13 @@ def resample_farrow(x: jax.Array, rate, *, method: str = "auto") -> jax.Array:
         )
     if method == "auto":
         # beyond the periodic-matrix envelope the exact schedule runs
-        # through the scalar-prefetch segment kernel (round 3) instead of
-        # the 0.03 GS/s pointwise gather
-        method = "matmul" if up * down <= MATMUL_MAX_PRODUCT else "segmented"
+        # through the pointwise gather
+        method = "matmul" if up * down <= MATMUL_MAX_PRODUCT else "gather"
     from ..utils.dispatch import record_choice
 
     record_choice("resample_farrow", method)
     if method == "matmul":
         y = _farrow_matmul(xp, up, down, m_out)
-    elif method == "segmented":
-        y = resample_farrow_segmented(xp, (up, down))
     elif method == "gather":
         # exact host-side schedule (numpy int64): ext position
         # q = 4*up + m*down, taps ext[q-1 .. q+2], ext = [0,0,0,0, x...]
@@ -170,7 +165,7 @@ def resample_farrow(x: jax.Array, rate, *, method: str = "auto") -> jax.Array:
         y = _farrow_gather_combine(ext, n_idx, mu_num, jnp.float32(1.0 / up))
     else:
         raise ValueError(
-            f"unknown method {method!r}; options ('auto', 'matmul', 'segmented', 'gather')"
+            f"unknown method {method!r}; options ('auto', 'matmul', 'gather')"
         )
     return y[0] if squeeze else y
 
@@ -323,8 +318,8 @@ __all__ = [
 
 # --- streaming (matmul spelling) ---------------------------------------------
 #
-# The gather chunk path above is the bit-exactness baseline; on TPU its
-# gathers run at ~0.03 GS/s (BENCH_NOTES). The matmul chunk path emits
+# The gather chunk path above is the bit-exactness baseline. The matmul
+# chunk path emits
 # whole FRAMES of `up` outputs through the same banded phase matrix as the
 # one-shot, carrying a (down+8)-sample input tail between chunks. All
 # bookkeeping is in SAMPLES (small ints), so there is no int32 phase
@@ -451,227 +446,3 @@ def farrow_matmul_flush(
     up, down = as_rational_rate(rate)
     y, count = _farrow_matmul_flush_jit(state, up, down)
     return y, count
-
-
-# --- segment kernel: past the phase-matrix envelope (round 3) -----------------
-#
-# Near-irrational exact rates (up*down > MATMUL_MAX_PRODUCT, e.g. two large
-# primes) have no periodic phase matrix, and the pointwise gather spelling
-# measured 0.03 GS/s on TPU (BENCH_NOTES). The segmented kernel below keeps
-# the EXACT integer schedule and rides the MXU anyway:
-#
-# 1. The cubic is refactored into the classic FARROW STRUCTURE: y[m] =
-#    sum_p mu_m^p * v_p[n_m], where v_p are four fixed 4-tap FIRs of the
-#    input (the Lagrange weights expanded in powers of mu). The
-#    data-dependent gather now hits 4 aligned streams at ONE index.
-# 2. Outputs are processed in segments of S; each segment's window start
-#    row (128-sample granular) comes from a host-exact int64 schedule and
-#    reaches the kernel as a PREFETCHED SCALAR, so the BlockSpec index_map
-#    DMAs exactly the rows the segment needs — data-dependent tiling, the
-#    TPU-native replacement for the gather.
-# 3. In-kernel, each output extracts v_p[j'] from the VMEM window by a
-#    ONE-HOT matmul (bit-exact: bf16x3 limb products against exact 0/1)
-#    plus a Wb-row masked reduction; mu comes from exact int32 arithmetic
-#    (rho < 128*up + S*down < 2^31 guarded below).
-#
-# Cost per output: ~4*Wb*128 MXU MACs + ~(128 + 4*Wb) VPU ops; HBM reads
-# ~4*Wb*128/S samples/output. Wb = ceil window rows, S the segment size.
-
-
-def _farrow_streams(xp: jax.Array, rows_needed: int) -> jax.Array:
-    """(C, T) -> (C*4, rows, 128) Farrow polynomial streams on the ext grid.
-
-    v_p[q] = sum_j a_{pj} ext[q + j - 1] with ext = [0,0,0,0, x, 0-pad];
-    a_{pj} from the power-of-mu expansion of the cubic Lagrange weights
-    (matches :func:`_lagrange4` to float rounding).
-    """
-    c, t = xp.shape
-    tv = rows_needed * 128
-    # big[k] = ext_grid[k-1] (5-zero left pad), so the j-th tap stream
-    # A_j[q] = ext_grid[q + j - 1] is the plain slice big[j : j + tv]
-    ext = jnp.pad(xp.astype(jnp.float32), ((0, 0), (5, tv - t - 5 + 3)))
-    xm1, x0, x1, x2 = ext[:, :-3], ext[:, 1:-2], ext[:, 2:-1], ext[:, 3:]
-    third, sixth = jnp.float32(1 / 3), jnp.float32(1 / 6)
-    v0 = x0
-    v1 = -third * xm1 - 0.5 * x0 + x1 - sixth * x2
-    v2 = 0.5 * (xm1 + x1) - x0
-    v3 = sixth * (x2 - xm1) + 0.5 * (x0 - x1)
-    v = jnp.stack([v0, v1, v2, v3], axis=1)  # (C, 4, Tv)
-    return v.reshape(c * 4, rows_needed, 128)
-
-
-def _farrow_segment_kernel(
-    row_ref, rho_ref, rate_ref, v_ref, o_ref, scratch, *, s_out, wb, nch
-):
-    """One (segment, window-block) grid step; compute fires on the last one.
-
-    ``wb`` counts 8-row (1024-sample) window blocks — the Pallas TPU block
-    sublane granularity; the window start is 1024-sample aligned and the
-    residual offset folds into the exact int32 phase ``rho``.
-
-    ``up``/``down`` arrive as prefetched SCALARS (rate_ref), not baked
-    constants — one compiled kernel serves every rate that lands on the
-    same (nseg, wb, rows, c, s_out) structure (round-3: the baked
-    spelling cost ~73 s of remote compile PER RATE).
-    """
-    from jax.experimental import pallas as pl
-
-    s = pl.program_id(0)
-    w = pl.program_id(1)
-    b_total = 4 * nch
-    w_rows = 8 * wb
-    for b in range(b_total):
-        scratch[pl.ds(b * w_rows + 8 * w, 8), :] = v_ref[b]
-
-    @pl.when(w == wb - 1)
-    def _compute():
-        up = rate_ref[0]
-        down = rate_ref[1]
-        inv_up = jnp.float32(1.0) / up.astype(jnp.float32)
-        rho0 = rho_ref[s]
-        i = jax.lax.broadcasted_iota(jnp.int32, (1, s_out), 1)
-        rho = rho0 + i * down
-        # division-free rho // up: f32-reciprocal candidate plus exact int32
-        # fix-up — integer division by a runtime value is the one elementwise
-        # op the VPU has no fast lowering for. Error budget: rho < 2^27
-        # (MAX_DENOMINATOR envelope) and the segmented path only runs when
-        # up*down > 2^22 with down <= 2^16, so up >= 64 and the candidate is
-        # within +-1 of true even with the runtime-reciprocal ulp; one
-        # fix-up round restores exactness.
-        jj = (rho.astype(jnp.float32) * inv_up).astype(jnp.int32)
-        for _ in range(2):  # two rounds widen the correction to +-2
-            r = rho - jj * up
-            jj = jj + (r >= up).astype(jnp.int32) - (r < 0).astype(jnp.int32)
-        mu_num = rho - jj * up
-        mu = mu_num.astype(jnp.float32) * inv_up
-        row = jax.lax.shift_right_logical(jj, 7)
-        lane = jj - jax.lax.shift_left(row, 7)
-        ol = (
-            jax.lax.broadcasted_iota(jnp.int32, (128, s_out), 0)
-            == jnp.broadcast_to(lane, (128, s_out))
-        ).astype(jnp.float32)
-        orr = (
-            jax.lax.broadcasted_iota(jnp.int32, (w_rows, s_out), 0)
-            == jnp.broadcast_to(row, (w_rows, s_out))
-        ).astype(jnp.float32)
-        inner = jax.lax.dot_general(
-            scratch[:],
-            ol,
-            (((1,), (0,)), ((), ())),
-            precision=jax.lax.Precision.HIGHEST,
-            preferred_element_type=jnp.float32,
-        )  # (4C*W_rows, S): stream b's rows at [b*w_rows, (b+1)*w_rows)
-        for ci in range(nch):
-            g = []
-            for p in range(4):
-                b = ci * 4 + p
-                sl = inner[b * w_rows : (b + 1) * w_rows, :]
-                g.append(jnp.sum(sl * orr, axis=0, keepdims=True))
-            y = g[0] + mu * (g[1] + mu * (g[2] + mu * g[3]))
-            o_ref[0, ci : ci + 1, :] = y
-
-
-def resample_farrow_segmented(
-    x: jax.Array, rate, *, segment: int = 512
-) -> jax.Array:
-    """Exact-schedule Farrow resample for rates beyond the matrix envelope.
-
-    Same output as ``resample_farrow(method="gather")`` to float rounding
-    (identical integer index/mu schedule; the cubic is evaluated in Farrow
-    power form instead of factored Lagrange products). Any rational rate;
-    segments of ``segment`` outputs fetch their exact input window via
-    scalar-prefetched block indices.
-
-    The rate reaches the kernel as prefetched scalars and the grid/input
-    shapes are bucketed (segment count to a multiple of 8, stream rows to
-    a multiple of 1024), so nearby rates over the same stream reuse ONE
-    compiled kernel — a rate sweep (Doppler search, clock-drift tracking)
-    no longer pays the ~73 s Mosaic compile per rate.
-    """
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    up, down = as_rational_rate(rate)
-    xp, squeeze = _as_planar(x)
-    c, t = xp.shape
-    m_out = farrow_output_len(t, (up, down))
-    if m_out <= 0:
-        raise ValueError(
-            f"input too short to resample: {t} samples at rate {up}/{down}"
-        )
-    s_out = int(segment)
-    if s_out % 128 != 0:
-        raise ValueError(f"segment must be a multiple of 128, got {segment}")
-    if 1024 * up + s_out * down >= 2**31:
-        raise ValueError(
-            f"segment {s_out} at rate {up}/{down} exceeds the int32 phase "
-            "envelope; use a smaller segment"
-        )
-    nseg = -(-m_out // s_out)
-    # wb counts 8-row (1024-sample) blocks; the window covers the 1024-
-    # aligned start residual (< 1024 samples) plus the segment's span
-    wb = ((s_out - 1) * down // up + 1026) // 1024 + 1
-
-    # host-exact segment schedule (int64), padded to the nseg bucket with
-    # copies of the last real segment (their outputs are sliced away).
-    # Bucketing only pays off when the stream is long enough that a rate
-    # sweep would otherwise recompile per rate; below 64 segments the
-    # padding waste (up to 7 extra segments) outweighs it, so stay exact.
-    nseg_pad = -(-nseg // 8) * 8 if nseg >= 64 else nseg
-    s_arr = np.arange(nseg, dtype=np.int64)
-    start_num = 4 * up + s_arr * (s_out * down)
-    n_start = start_num // up
-    w_blocks = (n_start // 1024).astype(np.int32)
-    rho0 = (start_num - w_blocks.astype(np.int64) * 1024 * up).astype(np.int32)
-    if nseg_pad > nseg:
-        w_blocks = np.concatenate(
-            [w_blocks, np.full(nseg_pad - nseg, w_blocks[-1], np.int32)]
-        )
-        rho0 = np.concatenate(
-            [rho0, np.full(nseg_pad - nseg, rho0[-1], np.int32)]
-        )
-    rows_needed = (int(w_blocks[nseg - 1]) + wb) * 8
-    rows_needed = -(-rows_needed // 1024) * 1024  # bucket for compile reuse
-
-    v = _farrow_streams(xp, rows_needed)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3,
-        grid=(nseg_pad, wb),
-        in_specs=[
-            pl.BlockSpec(
-                (4 * c, 8, 128),
-                lambda s, w, row_ref, rho_ref, rate_ref: (0, row_ref[s] + w, 0),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        out_specs=pl.BlockSpec(
-            (1, c, s_out),
-            lambda s, w, row_ref, rho_ref, rate_ref: (s, 0, 0),
-            memory_space=pltpu.VMEM,
-        ),
-        scratch_shapes=[pltpu.VMEM((4 * c * wb * 8, 128), jnp.float32)],
-    )
-    out = pl.pallas_call(
-        functools.partial(
-            _farrow_segment_kernel,
-            s_out=s_out,
-            wb=wb,
-            nch=c,
-        ),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((nseg_pad, c, s_out), jnp.float32),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary", "arbitrary")
-        ),
-        interpret=jax.default_backend() != "tpu",
-    )(
-        jnp.asarray(w_blocks),
-        jnp.asarray(rho0),
-        jnp.asarray([up, down], jnp.int32),
-        v,
-    )
-    y = out.transpose(1, 0, 2).reshape(c, nseg_pad * s_out)[:, :m_out]
-    return y[0] if squeeze else y
-
-
-__all__.append("resample_farrow_segmented")

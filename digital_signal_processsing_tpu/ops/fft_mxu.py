@@ -1,24 +1,21 @@
-"""MXU-factorized DFT: the FFT stage as two batched matmul passes.
+"""Matmul-factorized DFT: the FFT stage as two batched matmul passes.
 
-On-chip profiling of the overlap-save FIR (benchmarks/r2_rows.py, v5e)
-puts XLA's TPU rfft+irfft pair at 29 ms of the 36 ms total on 16x4M/k=1024
-— ~10 GB/s effective, far off the MXU's capability. A DFT of composite
-length N = N1*N2 factors (Cooley-Tukey) into
+A DFT of composite length N = N1*N2 factors (Cooley-Tukey) into
 
     X[k1 + N1*k2] = sum_n2 W_N^(n2*k1) * W_N2^(n2*k2)
                             * sum_n1 x[N2*n1 + n2] * W_N1^(n1*k1)
 
 i.e. a batched (N2, N1) @ (N1, N1) matmul, an elementwise twiddle, and a
-batched (N1-many) (N2) @ (N2, N2) contraction — all MXU work at ~N1+N2
-MACs/point instead of XLA's FFT lowering. Complex arithmetic is planar
-(re, im) real matmuls (complex64 is a second-class citizen on this
-backend), with HIGH precision (bf16x3 passes) giving ~1e-6 relative error
-— two orders below the FIR design ripple that dominates any filtering use.
+batched (N1-many) (N2) @ (N2, N2) contraction — dense matmul work at
+~N1+N2 MACs/point. Complex arithmetic is planar (re, im) real matmuls,
+with HIGH precision giving ~1e-6 relative error on the backend it was
+tuned for — two orders below the FIR design ripple that dominates any
+filtering use.
 
-Used by ops/fir.py's ``fir_filter(method="overlap_save_mxu"/"overlap_save_
-fused")`` block convolutions (auto picks the fused engine past the direct
-crossover); the thin jnp.fft wrappers in ops/fft.py remain the
-general-purpose API.
+These engines are explicit ``method="mxu"`` choices of ops/fft.py and
+``fir_filter(method="overlap_save_mxu")``; ``auto`` takes jnp.fft (cuFFT
+on a GPU). The name is historical: the engines were first written for a
+matrix unit whose FFT lowering was slow.
 """
 
 from __future__ import annotations
@@ -118,12 +115,9 @@ FACTORED_MAX_N = 32768
 
 # Dense real-DFT crossover: up to this length, ONE (n, n//2+1) matmul pair
 # beats the factored engine's batched tiny stage-B contractions +
-# relayouts. Measured on chip at (8, 2M) stft
-# (logs/r4_onchip/r4_stft_dense_ab.log): dense 25.4/28.4/24.2/23.9 GS/s at
-# nfft 512/1024/2048/4096 vs factored 0.92/1.17/1.48/1.68 and XLA
-# 0.89/1.17/1.48/1.67 — 14-24x at every probed size; istft dense 5.39 vs
-# 2.41/2.16. Matrices are (n, h) f32 pairs — 67 MB HBM-resident at 4096;
-# 8192 would need 268 MB, so the factored engine keeps larger sizes.
+# relayouts (chosen on the earlier accelerator; not measured on a GPU).
+# Matrices are (n, h) f32 pairs — 67 MB device-resident at 4096; 8192
+# would need 268 MB, so the factored engine keeps larger sizes.
 DENSE_RFFT_MAX_N = 4096
 
 
@@ -159,13 +153,7 @@ def rfft_dense(
 ) -> tuple[jax.Array, jax.Array]:
     """Real (..., n) -> planar (re, im) half spectrum, ONE matmul pair.
 
-    HIGH (bf16x3) is the round-5 default: the round-4 "HIGHEST costs ~4%"
-    reading came from an A/B whose loop carry folded only out[..., :4],
-    letting XLA slice the DFT rhs — with the FULL spectrum forced the op
-    is MXU-precision-bound and HIGH is ~1.5x HIGHEST at stft shapes
-    (15.5 vs 8.3 GS/s at nfft=512/(8, 2M); framed 13.9 vs 9.7 —
-    logs/r5_onchip/r5_stft_prec_ab.log). Parity vs XLA's FFT: HIGH
-    1.3e-5, HIGHEST 3.3e-7 (same log) — both far inside the hann
+    HIGH is the default precision: its error sits far inside the hann
     window's -31 dB sidelobe floor; pass ``precision`` to pin HIGHEST.
     """
     n = x.shape[-1]
@@ -213,11 +201,8 @@ def rfft_dense_framed(
         out = sum_j x2[..., j : j + num_frames, :] @ (w ⊙ W)[j*hop:(j+1)*hop]
 
     — J shifted CONTIGUOUS views of the same reshape, so the (frames, nfft)
-    tensor is never materialized. The round-4 stft measured 25.4 GS/s at
-    nfft=512 against its own ~41 GS/s framing floor (BENCH_NOTES): the gap
-    was overlapping_frames' concat + windowed-segment materialization,
-    which this removes (the ARCHITECTURE §10 relayout doctrine applied to
-    framing). ``detrend`` reproduces per-segment mean removal analytically:
+    tensor is never materialized: no concat + windowed-segment
+    materialization of overlapping frames. ``detrend`` reproduces per-segment mean removal analytically:
     DFT(w*(x - m)) = DFT(w*x) - m*DFT(w), with the per-frame means from the
     same shifted row sums.
 
@@ -271,13 +256,8 @@ def fft_large(
     in int32 (both factors <= 2^15, so the product never overflows; a
     host-side (n,) constant would be 512 MB at 64M and a float32 phase
     accumulator would be ~0.2 rad wrong by t ~ 1M — the oscillator-bank
-    lesson, BENCH_NOTES). Handles n up to 2^30; XLA's native FFT stays the
-    anchor for short transforms (ops/fft.py wrappers).
-
-    Covers the "FFT stage" north star at production lengths: XLA's TPU FFT
-    measured ~10 GB/s effective and its full-length jnp.fft.fft spelling
-    takes minutes of remote compile at 64M (BENCH_NOTES r1/r2); this engine
-    is matmuls + transposes only.
+    lesson). Handles n up to 2^30; this engine is matmuls + transposes
+    only.
     """
     n = x_re.shape[-1]
     n1 = _pick_large_factor(n)
@@ -347,7 +327,7 @@ def overlap_save_mxu(
     block: int,
     n1: int = 128,
 ) -> jax.Array:
-    """Causal FIR via overlap-save with the MXU-factorized DFT.
+    """Causal FIR via overlap-save with the matmul-factorized DFT.
 
     Same semantics as ops/fir.py's ``fir_overlap_save``; ``block`` is the
     useful samples per segment, nfft = block rounded with the k-1 overlap
@@ -391,476 +371,8 @@ def _overlap_save_mxu_jit(x, hr, hi, *, k: int, block: int, n1: int):
     return y[0] if squeeze else y
 
 
-# VMEM ceiling for the fused kernel's nfft: a_dim = nfft/128 and the four
-# (a_dim, a_dim) stage constants + ~14 live (a_dim, 128) tiles per block
-# must fit 16 MB (g=2 at nfft=73728 still crashed the Mosaic allocator).
-FUSED_MAX_NFFT = 32768
-
-# --- fused Pallas overlap-save ----------------------------------------------
-#
-# The XLA spelling above is HBM-bound: each stage (restructure, two matmul
-# passes, twiddle, frequency multiply, and the same again backwards)
-# round-trips the full (c, nblocks, nfft) tensor through HBM — measured
-# ~29 ms at 16x4M/k=1024 where the MXU work alone is ~3 ms. One block's
-# whole chain is only nfft*4 bytes (~36 KB), so the fused kernel below
-# keeps it in VMEM: per grid step it loads G blocks' halo+main columns,
-# runs forward stages, the frequency-domain tap multiply, and the inverse
-# stages entirely on-tile, and writes back only the G*L useful samples.
-
-
-def _fused_kernel(
-    halo_ref,
-    main_ref,
-    wa_r_ref,
-    wa_i_ref,
-    tw_r_ref,
-    tw_i_ref,
-    wb_r_ref,
-    wb_i_ref,
-    h_r_ref,
-    h_i_ref,
-    vb_r_ref,
-    vb_i_ref,
-    twc_r_ref,
-    twc_i_ref,
-    va_r_ref,
-    va_i_ref,
-    o_ref,
-    *,
-    g: int,
-    a_dim: int,
-    precision,
-):
-    """One grid step: g blocks' full overlap-save chains, all in VMEM.
-
-    Factorization n = 128*a + b (b the 128-lane minor), k = ka + A*kb:
-    every stage is a 2-D dot_general whose contraction dim is chosen so NO
-    explicit relayout is ever needed (Mosaic's MXU loads transposed
-    operands natively; a big in-kernel reshape/transpose crashes the
-    lowering). Shapes: (A, 128) time tiles, (128, A) and (A, 128)
-    frequency tiles, consts (A, A) / (128, A) / (128, 128).
-    """
-    import jax
-
-    hp = precision or jax.lax.Precision.HIGHEST
-
-    def mm(x, w):
-        return jax.lax.dot_general(
-            x, w, (((1,), (0,)), ((), ())), precision=hp,
-            preferred_element_type=jnp.float32,
-        )
-
-    def mm0(x, w):
-        return jax.lax.dot_general(
-            x, w, (((0,), (0,)), ((), ())), precision=hp,
-            preferred_element_type=jnp.float32,
-        )
-
-    n = a_dim * 128
-    inv_n = jnp.float32(1.0 / n)
-    wa_r, wa_i = wa_r_ref[:], wa_i_ref[:]
-    tw_r, tw_i = tw_r_ref[:], tw_i_ref[:]
-    wb_r, wb_i = wb_r_ref[:], wb_i_ref[:]
-    h_r, h_i = h_r_ref[:], h_i_ref[:]
-    vb_r, vb_i = vb_r_ref[:], vb_i_ref[:]
-    twc_r, twc_i = twc_r_ref[:], twc_i_ref[:]
-    va_r, va_i = va_r_ref[:], va_i_ref[:]
-    for gi in range(g):  # static unroll: one block's chain per iteration
-        # time tile x2[a, b] = x[128*a + b]: halo rows then main rows
-        e = jnp.concatenate([halo_ref[gi], main_ref[gi]], axis=0)  # (A, 128)
-        # stage A: P[b, ka] = sum_a x2[a, b] * WA[a, ka]
-        pr = mm0(e, wa_r)
-        pi = mm0(e, wa_i)
-        qr = pr * tw_r - pi * tw_i  # tw in (b, ka) layout
-        qi = pr * tw_i + pi * tw_r
-        # stage B: X[ka, kb] = sum_b Q[b, ka] * WB[b, kb]
-        xr = mm0(qr, wb_r) - mm0(qi, wb_i)
-        xi = mm0(qr, wb_i) + mm0(qi, wb_r)
-        # frequency multiply; H permuted to (ka, kb) on the host
-        yr = xr * h_r - xi * h_i
-        yi = xr * h_i + xi * h_r
-        # inverse stage 1: C[ka, b] = sum_kb Y[ka, kb] * VB[kb, b]
-        cr = mm(yr, vb_r) - mm(yi, vb_i)
-        ci = mm(yr, vb_i) + mm(yi, vb_r)
-        dr = cr * twc_r - ci * twc_i  # conj twiddle in (ka, b) layout
-        di = cr * twc_i + ci * twc_r
-        # inverse stage 2: T[a, b] = sum_ka VA[ka, a] * D[ka, b]; only the
-        # real part survives (real input, real taps)
-        tr = mm0(va_r, dr) - mm0(va_i, di)
-        o_ref[gi] = tr * inv_n
-
-
-# --- 3-factor fused overlap-save (round 3) -----------------------------------
-#
-# The 2-factor kernel's VMEM wall is its (A, A) stage constants: nfft =
-# 128*A caps at 32768 (A=256, 256 KB/constant; A=576 measured a Mosaic OOM
-# at g=2). Splitting n = A2 * A1 * 128 instead keeps every matmul constant
-# <= (256, 256): the outer stages are (A2, A2) MXU contractions over the
-# SUBLANE dim of an (A2, P=A1*128) time tile, and the middle A1-point DFT
-# runs as statically-unrolled complex scalar-tile madds over 128-aligned
-# LANE slices — Mosaic on this backend lowers neither rank-3 dot_generals
-# nor in-kernel sublane splits (probe: "infer-vector-layout: unsupported
-# shape cast"), so everything below is 2-D dots, lane slices, and lane
-# concats only. Cost: 2*(A2 + 128) MXU MACs/point + ~8*A1 VPU MACs/point —
-# at A1=8 the VPU term is ~1 ms at 64M, noise next to the HBM round-trips
-# the fusion removes.
-
-FUSED3_MAX_NFFT = 1 << 20
-
-
-def _fused3_consts(nfft: int, a1: int, taps_np: np.ndarray):
-    """Host constants for the 3-factor kernel (planar float32 pairs)."""
-    p = a1 * 128
-    a2 = nfft // p
-    km = np.arange(a2)
-    s = np.arange(p)
-    sb = np.arange(128)
-
-    def planar(w):
-        return w.real.astype(np.float32), w.imag.astype(np.float32)
-
-    w2 = planar(np.exp(-2j * np.pi * np.outer(km, km) / a2))
-    v2 = planar(np.exp(2j * np.pi * np.outer(km, km) / a2))
-    tw1 = planar(np.exp(-2j * np.pi * np.outer(km, s) / nfft))
-    tw1c = planar(np.exp(2j * np.pi * np.outer(km, s) / nfft))
-    tw2 = planar(np.exp(-2j * np.pi * np.outer(np.arange(a1), sb) / p))
-    tw2c = planar(np.exp(2j * np.pi * np.outer(np.arange(a1), sb) / p))
-    wb = planar(np.exp(-2j * np.pi * np.outer(sb, sb) / 128))
-    vb = planar(np.exp(2j * np.pi * np.outer(sb, sb) / 128))
-    # taps response arranged [kdm, km, kdd] -> (A1*A2, 128) sublane-sliced
-    # per kdm: flat k = km + A2*kdm + A2*A1*kdd
-    h_f = np.fft.fft(taps_np, n=nfft)
-    h3 = h_f.reshape(128, a1, a2).transpose(1, 2, 0).reshape(a1 * a2, 128)
-    return [*w2, *tw1, *tw2, *wb, *planar(h3), *vb, *tw2c, *tw1c, *v2]
-
-
-def _fused3_kernel(
-    halo_ref,
-    main_ref,
-    w2r_ref,
-    w2i_ref,
-    tw1r_ref,
-    tw1i_ref,
-    tw2r_ref,
-    tw2i_ref,
-    wbr_ref,
-    wbi_ref,
-    h3r_ref,
-    h3i_ref,
-    vbr_ref,
-    vbi_ref,
-    tw2cr_ref,
-    tw2ci_ref,
-    tw1cr_ref,
-    tw1ci_ref,
-    v2r_ref,
-    v2i_ref,
-    o_ref,
-    *,
-    g: int,
-    a1: int,
-    a2: int,
-    precision,
-):
-    """One grid step: g blocks' 3-factor overlap-save chains in VMEM.
-
-    Tile (A2, P) with t = P*a2 + 128*a1 + sb; k = km + A2*kdm + A2*A1*kdd.
-    Stage chain: (A2,A2) sublane DFT -> n-twiddle -> A1-point lane-slice
-    DFT (scalar madds) -> P-twiddle -> (128,128) lane DFT -> tap multiply
-    -> the same chain mirrored with conjugate constants and a single 1/n.
-    """
-    import jax
-
-    hp = precision or jax.lax.Precision.HIGHEST
-    p = a1 * 128
-    n = a2 * p
-    inv_n = jnp.float32(1.0 / n)
-    # baked A1-point DFT scalars (compile-time: twiddles, not taps)
-    wmid = np.exp(-2j * np.pi * np.outer(np.arange(a1), np.arange(a1)) / a1)
-
-    def mmL(w, x):  # (A2, A2) @ (A2, P): contract sublane dim
-        return jax.lax.dot_general(
-            w, x, (((1,), (0,)), ((), ())), precision=hp,
-            preferred_element_type=jnp.float32,
-        )
-
-    def mm(x, w):  # (A2, 128) @ (128, 128): contract lane dim
-        return jax.lax.dot_general(
-            x, w, (((1,), (0,)), ((), ())), precision=hp,
-            preferred_element_type=jnp.float32,
-        )
-
-    w2r, w2i = w2r_ref[:], w2i_ref[:]
-    tw1r, tw1i = tw1r_ref[:], tw1i_ref[:]
-    wbr, wbi = wbr_ref[:], wbi_ref[:]
-    vbr, vbi = vbr_ref[:], vbi_ref[:]
-    tw1cr, tw1ci = tw1cr_ref[:], tw1ci_ref[:]
-    v2r, v2i = v2r_ref[:], v2i_ref[:]
-    for gi in range(g):
-        e = jnp.concatenate([halo_ref[gi], main_ref[gi]], axis=0)  # (A2, P)
-        # stage 1: G[km, s] = sum_a2 W2[km, a2] e[a2, s] (real input)
-        gr = mmL(w2r, e)
-        gi_ = mmL(w2i, e)
-        # n-twiddle TW1[km, s]
-        g2r = gr * tw1r - gi_ * tw1i
-        g2i = gr * tw1i + gi_ * tw1r
-        # middle A1-point DFT over lane slices + per-kdm tail stages
-        sl_r = [g2r[:, j * 128 : (j + 1) * 128] for j in range(a1)]
-        sl_i = [g2i[:, j * 128 : (j + 1) * 128] for j in range(a1)]
-        d_r, d_i = [], []
-        for kdm in range(a1):
-            hr = sl_r[0] * jnp.float32(wmid[0, kdm].real)
-            hi = sl_i[0] * jnp.float32(wmid[0, kdm].real)
-            for j in range(1, a1):
-                cr, ci = wmid[j, kdm].real, wmid[j, kdm].imag
-                hr = hr + sl_r[j] * jnp.float32(cr) - sl_i[j] * jnp.float32(ci)
-                hi = hi + sl_r[j] * jnp.float32(ci) + sl_i[j] * jnp.float32(cr)
-            # P-twiddle row kdm: (1, 128) broadcast over sublanes
-            t2r = tw2r_ref[kdm : kdm + 1, :]
-            t2i = tw2i_ref[kdm : kdm + 1, :]
-            h2r = hr * t2r - hi * t2i
-            h2i = hr * t2i + hi * t2r
-            # lane DFT: F = H2 @ WB
-            fr = mm(h2r, wbr) - mm(h2i, wbi)
-            fi = mm(h2r, wbi) + mm(h2i, wbr)
-            # tap multiply: H3 sublane slice for this kdm
-            h3r = h3r_ref[kdm * a2 : (kdm + 1) * a2, :]
-            h3i = h3i_ref[kdm * a2 : (kdm + 1) * a2, :]
-            yr = fr * h3r - fi * h3i
-            yi = fr * h3i + fi * h3r
-            # inverse lane DFT: C = Y @ VB
-            cr2 = mm(yr, vbr) - mm(yi, vbi)
-            ci2 = mm(yr, vbi) + mm(yi, vbr)
-            # conjugate P-twiddle
-            t2cr = tw2cr_ref[kdm : kdm + 1, :]
-            t2ci = tw2ci_ref[kdm : kdm + 1, :]
-            d_r.append(cr2 * t2cr - ci2 * t2ci)
-            d_i.append(cr2 * t2ci + ci2 * t2cr)
-        # middle inverse: E[a1'] = sum_kdm D[kdm] * conj(wmid)[kdm, a1']
-        e_r, e_i = [], []
-        for j in range(a1):
-            er = d_r[0] * jnp.float32(wmid[0, j].real)
-            ei = d_i[0] * jnp.float32(wmid[0, j].real)
-            for kdm in range(1, a1):
-                cr, ci = wmid[kdm, j].real, -wmid[kdm, j].imag
-                er = er + d_r[kdm] * jnp.float32(cr) - d_i[kdm] * jnp.float32(ci)
-                ei = ei + d_r[kdm] * jnp.float32(ci) + d_i[kdm] * jnp.float32(cr)
-            e_r.append(er)
-            e_i.append(ei)
-        fr2 = jnp.concatenate(e_r, axis=1)  # (A2, P)
-        fi2 = jnp.concatenate(e_i, axis=1)
-        # conjugate n-twiddle: (f)(conj tw1) spelled with the tw1c constant
-        qr = fr2 * tw1cr - fi2 * tw1ci
-        qi = fr2 * tw1ci + fi2 * tw1cr
-        # inverse stage 1: real part of V2 @ Q, scaled 1/n
-        tr = mmL(v2r, qr) - mmL(v2i, qi)
-        o_ref[gi] = tr * inv_n
-
-
-def pick_fused3_block(k: int, want_block: int) -> int | None:
-    """Largest valid 3-factor block <= want_block for k taps, or None.
-
-    Valid = on the 128*A1 grid of the A1 the dispatcher will pick for
-    (block + k), with the resulting nfft within FUSED3_MAX_NFFT. Used by
-    ops/fir.py's auto dispatch to keep long-tap configs on the fused
-    engine instead of falling back to the HBM-bound composed path.
-    """
-    want_block = min(want_block, FUSED3_MAX_NFFT - pick_factored_nfft(k, 1024))
-    blk = (want_block // 1024) * 1024
-    while blk >= 1024:
-        try:
-            a1 = _pick_fused3_a1(pick_factored_nfft(blk + k, 8 * 1024))
-        except ValueError:
-            return None
-        p = 128 * a1
-        if blk % p == 0 and pick_factored_nfft(blk + k, 8 * p) <= FUSED3_MAX_NFFT:
-            return blk
-        blk -= 1024
-    return None
-
-
-def _pick_fused3_a1(min_nfft: int) -> int:
-    """Smallest A1 in {8, 16, 32} keeping A2 = nfft/(128*A1) <= 256.
-
-    Small A1 minimizes the VPU middle stage (~8*A1 MACs/point); the caller
-    re-rounds nfft onto the final 8*128*A1 grid.
-    """
-    for a1 in (8, 16, 32):
-        if -(-min_nfft // (a1 * 128 * 8)) * 8 <= 256:
-            return a1
-    raise ValueError(
-        f"no 3-factor split for nfft~{min_nfft} "
-        f"(cap {FUSED3_MAX_NFFT})"
-    )
-
-
-def overlap_save_fused(
-    x: jax.Array,
-    taps: jax.Array | np.ndarray,
-    *,
-    block: int = 8192,
-    g: int | None = None,
-    precision=None,
-) -> jax.Array:
-    """Fused-Pallas overlap-save FIR: per-block DFT chain entirely in VMEM.
-
-    Same semantics as :func:`overlap_save_mxu`; concrete taps only (the
-    frequency response is baked as a host-permuted constant). ``block``
-    (useful samples per segment, a multiple of 128) plus len(taps) must
-    fit nfft = the next 128 multiple; ``g`` blocks run per grid step.
-    Past nfft = 32768 the 3-factor kernel takes over transparently (block
-    must then sit on the 128*A1 grid — 1024 for nfft <= 262144); the cap
-    becomes FUSED3_MAX_NFFT.
-    """
-    import functools as _ft
-
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    from ..utils.layout import overlapping_frames
-    from .fir import _as_planar
-
-    taps_np = np.asarray(taps, np.float64)
-    k = int(taps_np.shape[0])
-    if block % 128 != 0:
-        raise ValueError(f"block must be a multiple of 128, got {block}")
-    nfft = pick_factored_nfft(block + k, 128)
-    if nfft > FUSED_MAX_NFFT:
-        return _overlap_save_fused3(
-            x, taps_np, block=block, g=g, precision=precision
-        )
-    a_dim = nfft // 128
-    el = block
-    h = nfft - el  # halo columns per block (>= k-1, multiple of 128)
-
-    xp, squeeze = _as_planar(x)
-    c, t = xp.shape
-    nb = -(-t // el)
-    rows = c * nb
-    if g is None:
-        # ~14 live (A, 128) f32 tiles per in-flight block; stay within a
-        # 10 MB VMEM working set (g=8 at nfft=73728 measured a Mosaic OOM)
-        g = max(1, min(8, (10 << 20) // (14 * nfft * 4)))
-    g_eff = min(g, rows)
-    xpad = jnp.pad(xp.astype(jnp.float32), ((0, 0), (0, nb * el - t)))
-    main = xpad.reshape(rows, el // 128, 128)
-    hal_src = jnp.pad(xpad, ((0, 0), (h, 0)))[:, : nb * el + h]
-    halo = overlapping_frames(hal_src, nb, el, h).reshape(rows, h // 128, 128)
-
-    # host-side constants for the n = 128*a + b factorization
-    ar = np.arange(a_dim)
-    b = np.arange(128)
-
-    def planar(w):
-        return w.real.astype(np.float32), w.imag.astype(np.float32)
-
-    wa = planar(np.exp(-2j * np.pi * np.outer(ar, ar) / a_dim))
-    tw = planar(np.exp(-2j * np.pi * np.outer(b, ar) / nfft))
-    wb = planar(np.exp(-2j * np.pi * np.outer(b, b) / 128))
-    h_f = np.fft.fft(taps_np, n=nfft)
-    h2 = planar(h_f.reshape(128, a_dim).T.copy())  # [ka, kb=128-major flat]
-    vb = planar(np.exp(2j * np.pi * np.outer(b, b) / 128))
-    twc = planar(np.exp(2j * np.pi * np.outer(ar, b) / nfft))  # (ka, b)
-    va = planar(np.exp(2j * np.pi * np.outer(ar, ar) / a_dim))
-    consts = [*wa, *tw, *wb, *h2, *vb, *twc, *va]
-
-    grid = (-(-rows // g_eff),)
-    tile3 = lambda w: pl.BlockSpec(  # noqa: E731
-        (g_eff, w, 128), lambda i: (i, 0, 0), memory_space=pltpu.VMEM
-    )
-    const = lambda arr: pl.BlockSpec(  # noqa: E731
-        arr.shape, lambda i: (0,) * arr.ndim, memory_space=pltpu.VMEM
-    )
-    out = pl.pallas_call(
-        _ft.partial(_fused_kernel, g=g_eff, a_dim=a_dim, precision=precision),
-        out_shape=jax.ShapeDtypeStruct((rows, a_dim, 128), jnp.float32),
-        grid=grid,
-        in_specs=[tile3(h // 128), tile3(el // 128)]
-        + [const(arr) for arr in consts],
-        out_specs=tile3(a_dim),
-        interpret=jax.default_backend() != "tpu",
-    )(halo, main, *[jnp.asarray(arr) for arr in consts])
-    y = out.reshape(rows, nfft)[:, nfft - el :].reshape(c, nb * el)[:, :t]
-    return y[0] if squeeze else y
-
-
-def _overlap_save_fused3(
-    x: jax.Array,
-    taps_np: np.ndarray,
-    *,
-    block: int,
-    g: int | None,
-    precision,
-) -> jax.Array:
-    """The nfft > 32768 engine behind :func:`overlap_save_fused`."""
-    import functools as _ft
-
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    from ..utils.layout import overlapping_frames
-    from .fir import _as_planar
-
-    k = int(taps_np.shape[0])
-    # A1 sizes the middle stage; nfft lands on the 8*P grid (P = 128*A1)
-    # so A2 = nfft/P stays a multiple of 8 and every in-kernel sublane
-    # slice (the per-kdm H3 rows) is 8-aligned
-    a1 = _pick_fused3_a1(pick_factored_nfft(block + k, 8 * 1024))
-    p = a1 * 128
-    nfft = pick_factored_nfft(block + k, 8 * p)
-    if nfft > FUSED3_MAX_NFFT:
-        raise ValueError(
-            f"3-factor fused overlap-save caps nfft at {FUSED3_MAX_NFFT}, "
-            f"got {nfft}; shrink block or use overlap_save_mxu"
-        )
-    if block % p != 0:
-        raise ValueError(
-            f"3-factor fused overlap-save needs block % {p} == 0 "
-            f"(nfft={nfft} -> A1={a1}), got {block}"
-        )
-    a2 = nfft // p
-    el = block
-    h = nfft - el
-
-    xp, squeeze = _as_planar(x)
-    c, t = xp.shape
-    nb = -(-t // el)
-    rows = c * nb
-    if g is None:
-        # ~10 live nfft-sized planar tiles per in-flight block
-        g = max(1, min(4, (8 << 20) // (10 * nfft * 4)))
-    g_eff = min(g, rows)
-    xpad = jnp.pad(xp.astype(jnp.float32), ((0, 0), (0, nb * el - t)))
-    main = xpad.reshape(rows, el // p, p)
-    hal_src = jnp.pad(xpad, ((0, 0), (h, 0)))[:, : nb * el + h]
-    halo = overlapping_frames(hal_src, nb, el, h).reshape(rows, h // p, p)
-
-    consts = _fused3_consts(nfft, a1, taps_np)
-    grid = (-(-rows // g_eff),)
-    tile3 = lambda w: pl.BlockSpec(  # noqa: E731
-        (g_eff, w, p), lambda i: (i, 0, 0), memory_space=pltpu.VMEM
-    )
-    const = lambda arr: pl.BlockSpec(  # noqa: E731
-        arr.shape, lambda i: (0,) * arr.ndim, memory_space=pltpu.VMEM
-    )
-    out = pl.pallas_call(
-        _ft.partial(
-            _fused3_kernel, g=g_eff, a1=a1, a2=a2, precision=precision
-        ),
-        out_shape=jax.ShapeDtypeStruct((rows, a2, p), jnp.float32),
-        grid=grid,
-        in_specs=[tile3(h // p), tile3(el // p)]
-        + [const(arr) for arr in consts],
-        out_specs=tile3(a2),
-        interpret=jax.default_backend() != "tpu",
-    )(halo, main, *[jnp.asarray(arr) for arr in consts])
-    y = out.reshape(rows, nfft)[:, nfft - el :].reshape(c, nb * el)[:, :t]
-    return y[0] if squeeze else y
-
-
 __all__ = [
     "dft_factored",
-    "overlap_save_fused",
     "overlap_save_mxu",
     "pick_factored_nfft",
 ]

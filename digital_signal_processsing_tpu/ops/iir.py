@@ -1,14 +1,13 @@
 """IIR filtering — parallelized first/second-order recurrences.
 
 Beyond the reference's FIR-only scope but core to any DSP framework a user
-would switch to. The TPU problem: an IIR is a sequential recurrence, the
-one thing SIMD hates. The TPU answer: linear recurrences compose
-associatively —
+would switch to. The problem: an IIR is a sequential recurrence, the one
+thing SIMD hates. The answer: linear recurrences compose associatively —
 
     first order:   y[t] = a*y[t-1] + x[t]
         state maps (a_i, b_i) compose as (a2*a1, a2*b1 + b2), so
         jax.lax.associative_scan evaluates the whole signal in O(log T)
-        parallel steps on the VPU;
+        parallel steps;
 
     biquad (direct form II transposed) and any order-N section: the state
     update is y_t = A @ y_{t-1} + B x_t with a 2x2 (or NxN) A — scanned as
@@ -27,10 +26,12 @@ import jax.numpy as jnp
 import numpy as np
 
 
-# T above which the XLA associative-scan spelling is no longer viable: its
-# log2(T) unrolled full-size HLO levels take minutes of (remote) compile at
-# T ~ 1M, and the Pallas block scan is faster at runtime well before that.
-PALLAS_IIR_MIN_T = 65536
+METHODS = ("auto", "xla_scan")
+
+
+def _check_method(method: str) -> None:
+    if method not in METHODS:
+        raise ValueError(f"unknown method {method!r}; options {METHODS}")
 
 
 def iir_first_order(
@@ -42,31 +43,13 @@ def iir_first_order(
 ) -> jax.Array:
     """y[t] = a*y[t-1] + b*x[t] over the last axis, zero initial state.
 
-    ``method``:
-    - ``auto`` (default): the Pallas block-scan kernel when the stream is
-      long (T >= PALLAS_IIR_MIN_T); otherwise the XLA associative scan.
-      The XLA scan CANNOT compile at T >~ 1M (log-depth full-size HLO
-      unroll), so the dispatch is what makes this public API usable at
-      production sizes. Coefficients reach the kernel through SMEM, so
-      traced/changing (a, b) never recompile; array-valued (per-sample)
-      coefficients take the XLA path.
-    - ``pallas`` / ``xla_scan``: force a path.
+    ``method``: ``auto`` and ``xla_scan`` both run the XLA associative
+    scan; ``a`` and ``b`` may be scalars or per-sample arrays.
     """
-    if method == "auto":
-        scalar_coeffs = np.ndim(a) == 0 and np.ndim(b) == 0
-        if not scalar_coeffs or x.shape[-1] < PALLAS_IIR_MIN_T:
-            method = "xla_scan"
-        else:
-            method = "pallas"
+    _check_method(method)
     from ..utils.dispatch import record_choice
 
-    record_choice("iir_first_order", method)
-    if method == "pallas":
-        return iir_first_order_pallas(x, a, b)
-    if method != "xla_scan":
-        raise ValueError(
-            f"unknown method {method!r}; options ('auto', 'pallas', 'xla_scan')"
-        )
+    record_choice("iir_first_order", "xla_scan")
     return _iir_first_order_xla(x, a, b)
 
 
@@ -91,8 +74,23 @@ def _iir_first_order_xla(
 def _biquad_scan(
     x: jax.Array, b: jax.Array, a: jax.Array, s0: jax.Array | None = None
 ) -> tuple[jax.Array, jax.Array]:
+    """One time-invariant biquad: ``b = (b0, b1, b2)``, ``a = (1, a1, a2)``."""
+    return _biquad_scan_rows(
+        x, jnp.stack([b[0], b[1], b[2], a[1], a[2]]), s0=s0, per_sample=False
+    )
+
+
+def _biquad_scan_rows(
+    x: jax.Array,
+    rows: jax.Array,
+    s0: jax.Array | None = None,
+    *,
+    per_sample: bool = True,
+) -> tuple[jax.Array, jax.Array]:
     """One biquad (DF2-transposed) over the last axis via associative scan.
 
+    ``rows``: ``(5,)`` normalized coefficients ``[b0, b1, b2, a1, a2]``, or
+    with ``per_sample`` one such row per sample, ``(*batch, n, 5)``.
     State s = [s1, s2]:
         y  = b0*x + s1
         s1' = b1*x - a1*y + s2
@@ -100,32 +98,32 @@ def _biquad_scan(
     Substituting y gives s' = A s + B x with
         A = [[-a1, 1], [-a2, 0]],  B = [b1 - a1*b0, b2 - a2*b0].
     The scan composes (A_t, c_t) affine maps; y is recovered pointwise.
+    Returns ``(y, state after the last sample)``.
     """
-    b0, b1, b2 = b[0], b[1], b[2]
-    a1, a2 = a[1], a[2]
-
     xf = x.astype(jnp.float32)
     batch = xf.shape[:-1]
+    rows = jnp.asarray(rows, jnp.float32)
+    b0, b1, b2, a1, a2 = (
+        jnp.broadcast_to(rows[..., i] if per_sample else rows[i], xf.shape)
+        for i in range(5)
+    )
     # Six same-rank leaves (A11,A12,A21,A22,c1,c2) scanned along the last
-    # axis, composed COMPONENTWISE: (a) matmul-free composition keeps full
-    # f32 on TPU (A2 @ A1 at default precision is bf16 — measured 9e-3
-    # relative error vs 3e-7, invisible to the CPU-only CI); (b) equal-rank
+    # axis, composed COMPONENTWISE: a matmul-free composition keeps full
+    # float32 whatever the backend's matmul precision, and equal-rank
     # leaves stay inside associative_scan's documented axis contract.
-    ones = jnp.ones_like(xf)
     m = (
-        -a1 * ones,
-        ones,
-        -a2 * ones,
+        -a1,
+        jnp.ones_like(xf),
+        -a2,
         jnp.zeros_like(xf),
         xf * (b1 - a1 * b0),
         xf * (b2 - a2 * b0),
     )
     if s0 is not None:
         # fold the incoming state into the first step's offset
-        sf = s0.astype(jnp.float32)
-        sb = jnp.broadcast_to(sf, batch + (2,))
-        add1 = -a1 * sb[..., 0] + sb[..., 1]
-        add2 = -a2 * sb[..., 0]
+        sb = jnp.broadcast_to(s0.astype(jnp.float32), batch + (2,))
+        add1 = -a1[..., 0] * sb[..., 0] + sb[..., 1]
+        add2 = -a2[..., 0] * sb[..., 0]
         idx0 = jnp.arange(xf.shape[-1]) == 0
         m = m[:4] + (
             m[4] + jnp.where(idx0, add1[..., None], 0.0),
@@ -162,33 +160,13 @@ def sosfilt(sos: jax.Array, x: jax.Array, *, method: str = "auto") -> jax.Array:
     """Cascade of second-order sections (scipy layout: (n, 6), a0 == 1).
 
     Applies over the last axis; leading axes are independent streams.
-    ``method='auto'`` routes long calls to the fused scalar-A Pallas
-    cascade kernel — the XLA associative scan cannot compile at T >~ 1M,
-    so without the dispatch the documented API would fail at production
-    sizes, and the fused kernel runs the WHOLE cascade per VMEM tile
-    (measured 2.0x the per-section tile-scan spelling, BENCH_NOTES r3).
-    Section coefficients reach the kernel through SMEM inside a fori_loop
-    over sections, so compile time is independent of the section count and
-    a changed/traced ``sos`` never recompiles. ``method='pallas'`` keeps
-    the round-2 per-section tile-scan kernel as the A/B anchor.
+    ``method``: ``auto`` and ``xla_scan`` both run the XLA associative scan,
+    one section after another.
     """
-    if method == "auto":
-        if x.shape[-1] < PALLAS_IIR_MIN_T:
-            method = "xla_scan"
-        else:
-            method = "pallas_fused"
+    _check_method(method)
     from ..utils.dispatch import record_choice
 
-    record_choice("sosfilt", method)
-    if method == "pallas_fused":
-        return sosfilt_pallas_fused(sos, x)
-    if method == "pallas":
-        return sosfilt_pallas(sos, x)
-    if method != "xla_scan":
-        raise ValueError(
-            f"unknown method {method!r}; options "
-            "('auto', 'pallas_fused', 'pallas', 'xla_scan')"
-        )
+    record_choice("sosfilt", "xla_scan")
     return _sosfilt_xla(sos, x)
 
 
@@ -213,27 +191,12 @@ def sosfilt_chunk(
     """One chunk of the SOS cascade with carried per-section state.
 
     Chunked output is bit-close to one-shot sosfilt on the concatenated
-    stream (float32 scan ordering differences only). Long chunks
-    (T >= PALLAS_IIR_MIN_T) route to the seeded Pallas block scan — a
-    serving deployment streaming multi-million-sample chunks never pays the
-    XLA associative scan's compile wall (see :func:`sosfilt`).
+    stream (float32 scan ordering differences only).
     """
-    if method == "auto":
-        method = (
-            "pallas_fused" if x.shape[-1] >= PALLAS_IIR_MIN_T else "xla_scan"
-        )
+    _check_method(method)
     from ..utils.dispatch import record_choice
 
-    record_choice("sosfilt_chunk", method)
-    if method == "pallas_fused":
-        return sosfilt_chunk_pallas_fused(state, sos, x)
-    if method == "pallas":
-        return sosfilt_chunk_pallas(state, sos, x)
-    if method != "xla_scan":
-        raise ValueError(
-            f"unknown method {method!r}; options "
-            "('auto', 'pallas_fused', 'pallas', 'xla_scan')"
-        )
+    record_choice("sosfilt_chunk", "xla_scan")
     return _sosfilt_chunk_xla(state, sos, x)
 
 
@@ -406,1371 +369,6 @@ def design_butterworth(
     return np.asarray(rows, dtype=np.float32)
 
 
-# --- Pallas first-order scan ------------------------------------------------
-#
-# XLA's associative_scan unrolls log2(T) levels of full-size HLO — minutes of
-# (remote) compile at T ~ 1M+. The Pallas kernel below runs the same
-# first-order composition ((a2,b2)∘(a1,b1) = (a1*a2, a2*b1 + b2)) inside one
-# VMEM tile with log-depth roll-composes (identity fill: alpha<-1, beta<-0)
-# and carries the scalar state across the sequential grid — one small tile
-# program regardless of T.
-
-
-def _roll_fill(v, s, axis, fill):
-    import jax as _jax
-    from jax.experimental.pallas import tpu as _pltpu
-
-    idx = _jax.lax.broadcasted_iota(jnp.int32, v.shape, axis)
-    return jnp.where(idx >= s, _pltpu.roll(v, s, axis=axis), fill)
-
-
-def _fill_all_from_tail1(v):
-    """Broadcast lane 127's value to every lane (c=1 fill, zero-based)."""
-    from jax.experimental.pallas import tpu as _pltpu
-
-    out = _pltpu.roll(v, 1, axis=1)
-    idx = jax.lax.broadcasted_iota(jnp.int32, v.shape, 1)
-    out = jnp.where(idx == 0, out, 0.0)
-    s = 1
-    while s < 128:
-        out = out + _roll_fill(out, s, 1, 0.0)
-        s *= 2
-    return out
-
-
-def _iir1_kernel(c_ref, x_ref, o_ref, carry_ref, *, rows):
-    from jax.experimental import pallas as pl
-
-    # coefficients arrive through SMEM, NOT baked as constants: one compiled
-    # kernel serves every (a, b) — measured 4 baked-constant section kernels
-    # cost ~65 s of remote compile EACH at (16, 4M)
-    a, b = c_ref[0], c_ref[1]
-
-    # grid = (channels, time_tiles): time is the minor (fastest) grid axis,
-    # so each channel's tiles run in order and the carry resets per channel
-    t = pl.program_id(1)
-
-    @pl.when(t == 0)
-    def _init():
-        carry_ref[:] = jnp.zeros((1, 128), jnp.float32)
-
-    beta = x_ref[0].astype(jnp.float32) * b
-    alpha = jnp.full_like(beta, a)
-    # lane scan: compose with the left-adjacent segment
-    s = 1
-    while s < 128:
-        pa = _roll_fill(alpha, s, 1, 1.0)
-        pb = _roll_fill(beta, s, 1, 0.0)
-        beta = alpha * pb + beta
-        alpha = alpha * pa
-        s *= 2
-    # per-row totals (lane 127) -> row-prefix compose down the rows
-    ra = _fill_all_from_tail1(alpha)
-    rb = _fill_all_from_tail1(beta)
-    s = 1
-    while s < rows:
-        pa = _roll_fill(ra, s, 0, 1.0)
-        pb = _roll_fill(rb, s, 0, 0.0)
-        rb = ra * pb + rb
-        ra = ra * pa
-        s *= 2
-    # exclusive row state applied to the carried y: S_r = Aex*carry + Bex
-    aex = _roll_fill(ra, 1, 0, 1.0)
-    bex = _roll_fill(rb, 1, 0, 0.0)
-    state = aex * carry_ref[:] + bex  # (rows, 128), row-constant
-    o_ref[0] = alpha * state + beta
-    # inclusive composition at the last row updates the carry
-    carry_ref[:] = ra[rows - 1 :, :] * carry_ref[:] + rb[rows - 1 :, :]
-
-
-def _to_planar_tiles(x: jax.Array, tile_rows: int):
-    """(…, T) float32 -> ((C, R, 128) tiles, batch_shape, T).
-
-    Leading axes flatten to independent channel streams; each stream pads to
-    a tile multiple (causal filters: tail garbage never reaches kept output).
-    """
-    from ..utils import layout
-
-    batch = x.shape[:-1]
-    n = x.shape[-1]
-    xf = x.astype(jnp.float32).reshape((-1, n))
-    tile = tile_rows * 128
-    padded = layout.round_up(max(n, 1), tile)
-    if padded != n:
-        xf = jnp.pad(xf, ((0, 0), (0, padded - n)))
-    return xf.reshape(xf.shape[0], padded // 128, 128), batch, n
-
-
-def _from_planar_tiles(out, batch, n: int):
-    return out.reshape(out.shape[0], -1)[:, :n].reshape(batch + (n,))
-
-
-def _col_to_compact(col, rows):
-    """(rows, 1) column -> (rows/128, 128) row-major relayout.
-
-    Element (i, l) = col[128*i + l]. Spelled as g tiny contracting-dim-0
-    matmuls against the identity (exact bf16x3 HIGHEST) — the MXU loads
-    the transposed operand natively, so no in-kernel reshape/transpose
-    ever reaches Mosaic (the compile-helper crashes on those).
-    """
-    g = rows // 128
-    assert g * 128 == rows and 1 <= g <= 128, rows
-    hp = jax.lax.Precision.HIGHEST
-    j128 = jax.lax.broadcasted_iota(jnp.int32, (128, 128), 0)
-    l128 = jax.lax.broadcasted_iota(jnp.int32, (128, 128), 1)
-    eye = jnp.where(j128 == l128, 1.0, 0.0).astype(jnp.float32)
-    return jnp.concatenate(
-        [
-            jax.lax.dot_general(
-                col[128 * i : 128 * (i + 1), :], eye,
-                (((0,), (0,)), ((), ())), precision=hp,
-                preferred_element_type=jnp.float32,
-            )
-            for i in range(g)
-        ],
-        0,
-    )
-
-
-def _compact_to_rows_bcast(u, rows):
-    """Inverse relayout, broadcast: W[r, :] = u[r//128, r%128].
-
-    One HIGHEST selection matmul (exact value pass-through) plus a lane
-    reduction + broadcast per call.
-    """
-    g = rows // 128
-    hp = jax.lax.Precision.HIGHEST
-    row_idx = jax.lax.broadcasted_iota(jnp.int32, (rows, 128), 0)
-    lane_idx = jax.lax.broadcasted_iota(jnp.int32, (rows, 128), 1)
-    e1t = jnp.where((row_idx // 128) == lane_idx, 1.0, 0.0).astype(jnp.float32)
-    pad = jnp.zeros((128 - g, 128), jnp.float32)
-    x = jax.lax.dot_general(
-        e1t, jnp.concatenate([u, pad], 0), (((1,), (0,)), ((), ())),
-        precision=hp, preferred_element_type=jnp.float32,
-    )
-    lanesel = lane_idx == (row_idx % 128)
-    return jnp.broadcast_to(
-        jnp.sum(jnp.where(lanesel, x, 0.0), axis=1, keepdims=True),
-        (rows, 128),
-    )
-
-
-def _row_pass_compact1(tot, car, p, rows):
-    """Scalar (first-order) edition of :func:`_row_pass_compact`.
-
-    tot: (rows, 1) per-row totals; car: (1, 128) all-lanes-equal carry;
-    p: the scalar a^128. Returns v ((rows, 128) broadcast row-start
-    states) and the next carry nc ((1, 128)).
-    """
-    from jax.experimental.pallas import tpu as _pltpu
-
-    g = rows // 128
-    u = _col_to_compact(tot, rows)
-    rg = jax.lax.broadcasted_iota(jnp.int32, (g, 128), 0)
-    lg = jax.lax.broadcasted_iota(jnp.int32, (g, 128), 1)
-    first = (rg == 0) & (lg == 0)
-    u = jnp.where(first, u + jnp.broadcast_to(p * car, (g, 128)), u)
-    q = p
-    qpows = []
-    sh = 1
-    while sh < 128:
-        qpows.append(q)
-        u = q * _roll_fill(u, sh, 1, 0.0) + u
-        q = q * q
-        sh *= 2
-    if g > 1:
-        t = jnp.broadcast_to(u[:, 127:128], (g, 128))
-        w = q
-        sh = 1
-        while sh < g:
-            t = w * _roll_fill(t, sh, 0, 0.0) + t
-            w = w * w
-            sh *= 2
-        s_ = _roll_fill(t, 1, 0, 0.0)
-        lane1 = jax.lax.broadcasted_iota(jnp.int32, (1, 128), 1)
-        prof = jnp.ones((1, 128), jnp.float32)
-        for k, wk in enumerate(qpows):
-            shk = 1 << k
-            prof = jnp.where(
-                lane1 < shk, prof, wk * _pltpu.roll(prof, shk, axis=1)
-            )
-        u = u + jnp.broadcast_to(p * prof, (g, 128)) * s_
-    nc = _fill_all_from_tail1(u[g - 1 : g, :])
-    row_idx = jax.lax.broadcasted_iota(jnp.int32, (rows, 128), 0)
-    v = jnp.where(
-        row_idx == 0,
-        jnp.broadcast_to(car, (rows, 128)),
-        _roll_fill(_compact_to_rows_bcast(u, rows), 1, 0, 0.0),
-    )
-    return v, nc
-
-
-def _iir1_scalar_kernel(
-    c_ref, x_ref, o_ref, carry_ref, *, rows, row_pass="bcast"
-):
-    """First-order block scan with scalar-A composition (round 3).
-
-    :func:`_iir1_kernel` tracks BOTH the alpha products (data-independent
-    for a scalar coefficient) and the beta sums as full (rows, 128)
-    tiles; here every alpha composition is a traced scalar — the lane
-    scan halves, the row pass loses the alpha tile entirely, and
-    ``row_pass='compact'`` moves the row scan onto (rows/128, 128)
-    1-vreg tiles (:func:`_row_pass_compact1`). The per-element alpha
-    application comes back as a (1, 128) lane-power profile. Same
-    semantics and SMEM coefficient contract as :func:`_iir1_kernel`.
-    """
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as _pltpu
-
-    a, b = c_ref[0], c_ref[1]
-    t = pl.program_id(1)
-
-    @pl.when(t == 0)
-    def _init():
-        carry_ref[:] = jnp.zeros((1, 128), jnp.float32)
-
-    beta = x_ref[0].astype(jnp.float32) * b
-    w = a
-    pows = []
-    sh = 1
-    while sh < 128:
-        pows.append(w)
-        beta = w * _roll_fill(beta, sh, 1, 0.0) + beta
-        w = w * w
-        sh *= 2
-    # w = a^128
-    car = carry_ref[:]
-    tot = beta[:, 127:128]
-    row_idx = jax.lax.broadcasted_iota(jnp.int32, (rows, 128), 0)
-    if row_pass == "compact":
-        v, nc = _row_pass_compact1(tot, car, w, rows)
-        carry_ref[:] = nc
-    else:
-        tt = jnp.broadcast_to(tot, (rows, 128))
-        tt = jnp.where(
-            row_idx == 0, tt + jnp.broadcast_to(w * car, (rows, 128)), tt
-        )
-        q = w
-        sh = 1
-        while sh < rows:
-            tt = q * _roll_fill(tt, sh, 0, 0.0) + tt
-            q = q * q
-            sh *= 2
-        v = jnp.where(
-            row_idx == 0,
-            jnp.broadcast_to(car, (rows, 128)),
-            _roll_fill(tt, 1, 0, 0.0),
-        )
-        carry_ref[:] = tt[rows - 1 :, :]
-    lane1 = jax.lax.broadcasted_iota(jnp.int32, (1, 128), 1)
-    prof = jnp.ones((1, 128), jnp.float32)
-    for k, wk in enumerate(pows):
-        shk = 1 << k
-        prof = jnp.where(lane1 < shk, prof, wk * _pltpu.roll(prof, shk, axis=1))
-    o_ref[0] = jnp.broadcast_to(a * prof, (rows, 128)) * v + beta
-
-
-def iir_first_order_pallas(
-    x: jax.Array,
-    a: float,
-    b: float = 1.0,
-    *,
-    tile_rows: int = 512,
-    kernel: str = "scalar",
-    row_pass: str = "bcast",
-) -> jax.Array:
-    """y[t] = a*y[t-1] + b*x[t] over the last axis — Pallas block scan.
-
-    Same semantics as :func:`iir_first_order` (zero initial state) but the
-    compiled program is one small tile regardless of length (the XLA
-    associative_scan unrolls log2(T) full-size levels — minutes of compile
-    at T ~ 1M). Scalar ``a``/``b`` only, delivered through SMEM (changing
-    coefficients never recompile). Planar batching: any leading axes are
-    independent streams, walked by an outer grid axis with a per-stream
-    carry reset — one compile for all channels.
-
-    ``kernel='scalar'`` (the default since the r3 on-chip A/B: 13.9 vs
-    11.6 GS/s at (16, 4M) — `benchmarks/r3_iir1_scalar_ab.py`) composes the
-    data-independent alpha products as traced scalars
-    (:func:`_iir1_scalar_kernel`); ``kernel='tile'`` keeps the round-2
-    full-tile kernel as the A/B anchor. ``row_pass='compact'`` moves the
-    scalar kernel's row scan onto a (tile_rows/128, 128) relayout (measured
-    slower on chip — 11.1 GS/s — kept as an anchor only).
-    """
-    import functools
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    if kernel == "scalar":
-        if row_pass == "compact" and tile_rows % 128 != 0:
-            raise ValueError(
-                f"row_pass='compact' needs tile_rows % 128 == 0, got {tile_rows}"
-            )
-        kern = functools.partial(
-            _iir1_scalar_kernel, rows=tile_rows, row_pass=row_pass
-        )
-    elif kernel == "tile":
-        if row_pass != "bcast":
-            raise ValueError("kernel='tile' supports row_pass='bcast' only")
-        kern = functools.partial(_iir1_kernel, rows=tile_rows)
-    else:
-        raise ValueError(
-            f"unknown kernel {kernel!r}; options ('tile', 'scalar')"
-        )
-    x3d, batch, n = _to_planar_tiles(x, tile_rows)
-    nch, rtot = x3d.shape[0], x3d.shape[1]
-    coeffs = jnp.stack(
-        [jnp.asarray(a, jnp.float32), jnp.asarray(b, jnp.float32)]
-    )
-    out = pl.pallas_call(
-        kern,
-        out_shape=jax.ShapeDtypeStruct(x3d.shape, jnp.float32),
-        grid=(nch, rtot // tile_rows),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(
-                (1, tile_rows, 128), lambda c, t: (c, t, 0), memory_space=pltpu.VMEM
-            ),
-        ],
-        out_specs=pl.BlockSpec(
-            (1, tile_rows, 128), lambda c, t: (c, t, 0), memory_space=pltpu.VMEM
-        ),
-        scratch_shapes=[pltpu.VMEM((1, 128), jnp.float32)],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary", "arbitrary")
-        ),
-        interpret=jax.default_backend() != "tpu",
-    )(coeffs, x3d)
-    return _from_planar_tiles(out, batch, n)
-
-
-def _compose_affine(l, r):
-    """right∘left for 6-component affine maps x -> A x + c (2x2 A)."""
-    l11, l12, l21, l22, lc1, lc2 = l
-    r11, r12, r21, r22, rc1, rc2 = r
-    return (
-        r11 * l11 + r12 * l21,
-        r11 * l12 + r12 * l22,
-        r21 * l11 + r22 * l21,
-        r21 * l12 + r22 * l22,
-        r11 * lc1 + r12 * lc2 + rc1,
-        r21 * lc1 + r22 * lc2 + rc2,
-    )
-
-
-def _biquad_kernel(*refs, rows, seeded=False):
-    """One biquad (DF2T) over a flat stream tile — affine-map block scan.
-
-    Same structure as _iir1_kernel with the scalar (a,b) map replaced by
-    the 6-component (A, c) map (A 2x2, c 2-vector); the carry is the
-    section state, kept lane-broadcast so no narrow slices are needed.
-    Coefficients come through SMEM (scipy row layout) so ONE compiled
-    kernel serves every section of every filter — baking them as constants
-    cost ~65 s of remote compile per section at (16, 4M).
-
-    ``seeded``: streaming form — the carry initializes from a per-channel
-    state (SMEM (C, 2)) instead of zeros, and the end-of-chunk state is
-    written to a lane-broadcast (C, 2, 128) output.
-    """
-    from jax.experimental import pallas as pl
-
-    if seeded:
-        c_ref, s_ref, x_ref, o_ref, so_ref, carry_ref = refs
-    else:
-        c_ref, x_ref, o_ref, carry_ref = refs
-        s_ref = so_ref = None
-
-    # grid = (channels, time_tiles); see _iir1_kernel
-    ch = pl.program_id(0)
-    t = pl.program_id(1)
-
-    @pl.when(t == 0)
-    def _init():
-        if seeded:
-            carry_ref[0:1, :] = jnp.zeros((1, 128), jnp.float32) + s_ref[ch, 0]
-            carry_ref[1:2, :] = jnp.zeros((1, 128), jnp.float32) + s_ref[ch, 1]
-        else:
-            carry_ref[:] = jnp.zeros((2, 128), jnp.float32)
-
-    b0, b1, b2 = c_ref[0], c_ref[1], c_ref[2]
-    a1, a2 = c_ref[4], c_ref[5]  # a0 == 1 (scipy layout)
-    xf = x_ref[0].astype(jnp.float32)
-    ident = (1.0, 0.0, 0.0, 1.0, 0.0, 0.0)
-    m = (
-        jnp.full_like(xf, -a1),
-        jnp.ones_like(xf),
-        jnp.full_like(xf, -a2),
-        jnp.zeros_like(xf),
-        xf * (b1 - a1 * b0),
-        xf * (b2 - a2 * b0),
-    )
-
-    def scan_axis(m, axis, size):
-        s = 1
-        while s < size:
-            left = tuple(_roll_fill(v, s, axis, f) for v, f in zip(m, ident))
-            m = _compose_affine(left, m)
-            s *= 2
-        return m
-
-    m = scan_axis(m, 1, 128)  # inclusive lane maps within each row
-    # per-row totals (lane 127) broadcast to every lane, then row-prefix
-    rowm = tuple(_fill_all_from_tail1(v) for v in m)
-    rowm = scan_axis(rowm, 0, rows)  # inclusive row maps, lane-broadcast
-    # row-exclusive maps applied to the tile carry -> state at row starts
-    exm = tuple(_roll_fill(v, 1, 0, f) for v, f in zip(rowm, ident))
-    c1 = carry_ref[0:1, :]
-    c2 = carry_ref[1:2, :]
-    s1_row = exm[0] * c1 + exm[1] * c2 + exm[4]
-    s2_row = exm[2] * c1 + exm[3] * c2 + exm[5]
-    # lane-exclusive maps compose the row-start state to each element
-    exl = tuple(_roll_fill(v, 1, 1, f) for v, f in zip(m, ident))
-    s1 = exl[0] * s1_row + exl[1] * s2_row + exl[4]
-    o_ref[0] = b0 * xf + s1
-    # carry update: the last row's inclusive map (already lane-broadcast)
-    lr = tuple(v[rows - 1 :, :] for v in rowm)
-    carry_ref[0:1, :] = lr[0] * c1 + lr[1] * c2 + lr[4]
-    carry_ref[1:2, :] = lr[2] * c1 + lr[3] * c2 + lr[5]
-    if seeded:
-        # last write wins (sequential time axis): end-of-chunk state
-        so_ref[0] = carry_ref[:]
-
-
-def sosfilt_pallas(
-    sos: jax.Array | np.ndarray, x: jax.Array, *, tile_rows: int = 256
-) -> jax.Array:
-    """SOS cascade over the last axis via the Pallas block scan.
-
-    Same semantics as :func:`sosfilt` (zero initial state per section) but
-    the compiled program is one small tile per section regardless of
-    length — the XLA associative_scan over 2x2-matrix pytrees unrolls
-    log2(T) full-size HLO levels and takes unbounded compile time past
-    T ~ 1M. Coefficients stream through SMEM inside a lax.scan over
-    sections: ONE kernel compile regardless of section count or sos
-    values (4 baked-constant section kernels measured ~260 s of remote
-    compile; this spelling is section-count-free). Planar
-    batching: leading axes are independent streams, walked by an outer grid
-    axis with a per-stream carry reset — one compile for all channels.
-    """
-    import functools
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    sos_rows = jnp.asarray(sos, jnp.float32).reshape(-1, 6)
-    # pad ONCE: the tail sits after position n and every section is causal,
-    # so tail garbage can never reach a kept output of a later section
-    y3d, batch, n = _to_planar_tiles(x, tile_rows)
-    nch, rtot = y3d.shape[0], y3d.shape[1]
-
-    section = pl.pallas_call(
-        functools.partial(_biquad_kernel, rows=tile_rows),
-        out_shape=jax.ShapeDtypeStruct(y3d.shape, jnp.float32),
-        grid=(nch, rtot // tile_rows),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(
-                (1, tile_rows, 128),
-                lambda c, t: (c, t, 0),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        out_specs=pl.BlockSpec(
-            (1, tile_rows, 128),
-            lambda c, t: (c, t, 0),
-            memory_space=pltpu.VMEM,
-        ),
-        scratch_shapes=[pltpu.VMEM((2, 128), jnp.float32)],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary", "arbitrary")
-        ),
-        interpret=jax.default_backend() != "tpu",
-    )
-    # scan over sections: the cascade is ONE traced kernel applied
-    # n_sections times at runtime — compile time is section-count-free
-    y3d, _ = jax.lax.scan(
-        lambda y, row: (section(row, y), None), y3d, sos_rows
-    )
-    return _from_planar_tiles(y3d, batch, n)
-
-
-def sosfilt_chunk_pallas(
-    state: jax.Array, sos: jax.Array, x: jax.Array, *, tile_rows: int = 256
-) -> tuple[jax.Array, jax.Array]:
-    """Streaming SOS chunk via the seeded Pallas block scan.
-
-    Same contract as :func:`sosfilt_chunk`. The tile-aligned head of the
-    chunk runs the seeded kernel (carry initialized from the incoming
-    per-section state, end state read back); any sub-tile tail runs the
-    XLA chunk op seeded with the head's out-state — state hand-off stays
-    EXACT (padding the kernel input instead would decay the state through
-    fictitious zero samples).
-    """
-    tile = tile_rows * 128
-    n = x.shape[-1]
-    main = (n // tile) * tile
-    if main == 0:
-        return _sosfilt_chunk_xla(state, sos, x)
-    st1, y_main = _sosfilt_chunk_pallas_aligned(
-        state, sos, x[..., :main], tile_rows
-    )
-    if main == n:
-        return st1, y_main
-    st2, y_tail = _sosfilt_chunk_xla(st1, sos, x[..., main:])
-    return st2, jnp.concatenate([y_main, y_tail], axis=-1)
-
-
-@functools.partial(jax.jit, static_argnames=("tile_rows",))
-def _sosfilt_chunk_pallas_aligned(
-    state: jax.Array, sos: jax.Array, x: jax.Array, tile_rows: int
-) -> tuple[jax.Array, jax.Array]:
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    sos_rows = jnp.asarray(sos, jnp.float32).reshape(-1, 6)
-    n_sec = sos_rows.shape[0]
-    st = jnp.asarray(state, jnp.float32).reshape(n_sec, -1, 2)  # (S, C, 2)
-    y3d, batch, n = _to_planar_tiles(x, tile_rows)
-    nch, rtot = y3d.shape[0], y3d.shape[1]
-
-    section = pl.pallas_call(
-        functools.partial(_biquad_kernel, rows=tile_rows, seeded=True),
-        out_shape=[
-            jax.ShapeDtypeStruct(y3d.shape, jnp.float32),
-            jax.ShapeDtypeStruct((nch, 2, 128), jnp.float32),
-        ],
-        grid=(nch, rtot // tile_rows),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(
-                (1, tile_rows, 128),
-                lambda c, t: (c, t, 0),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        out_specs=[
-            pl.BlockSpec(
-                (1, tile_rows, 128),
-                lambda c, t: (c, t, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (1, 2, 128), lambda c, t: (c, 0, 0), memory_space=pltpu.VMEM
-            ),
-        ],
-        scratch_shapes=[pltpu.VMEM((2, 128), jnp.float32)],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary", "arbitrary")
-        ),
-        interpret=jax.default_backend() != "tpu",
-    )
-
-    def step(y, xs):
-        row, st_c2 = xs
-        y2, st_out = section(row, st_c2, y)
-        return y2, st_out[:, :, 0]
-
-    y3d, new_st = jax.lax.scan(step, y3d, (sos_rows, st))
-    return (
-        new_st.reshape(jnp.asarray(state).shape),
-        _from_planar_tiles(y3d, batch, n),
-    )
-
-
-# --- fused scalar-A cascade kernel (round 3) ----------------------------------
-#
-# The 6-component tile scan above composes the A-part of every affine map as
-# FULL TILES, but a biquad's A = [[-a1, 1], [-a2, 0]] is data-INDEPENDENT: at
-# doubling level s every left segment has the same A^s. The kernel below
-# composes those as four traced SCALARS (2x2 powers, squared once per level)
-# and keeps only the data-dependent c-part in tiles — each lane level costs
-# 2 rolls + 4 multiply-adds instead of 6 rolls + 12 multiplies — and fuses
-# the WHOLE section cascade per tile (x read once, y written once, vs one
-# HBM round trip per section). Measured round 2: ~1 ms HBM + ~3.3 ms VPU per
-# section at (16, 4M); this targets both terms (VERDICT r2 item 1).
-
-
-def _row_pass_compact(tot1, tot2, car1, car2, p, rows):
-    """Row-level affine scan in compact (rows/128, 128) layout (round 3).
-
-    The broadcast row pass runs log2(rows) doubling levels on FULL
-    (rows, 128) tiles whose 128 lanes all carry the same value — at
-    rows=512 that is ~90 full-tile VPU ops per section for one scalar
-    pair per row of information. Here the (rows, 1) row totals are
-    relaid into a (rows/128, 128) tile (one value per lane) with g tiny
-    transpose matmuls (exact bf16x3), the scan runs on 1-vreg tiles, and
-    the row-start states scatter back with one HIGHEST selection matmul
-    + a lane reduction per component. Identical recurrence, two-level
-    (lane, sublane) association order instead of pure doubling — parity
-    with the broadcast pass is at f32 rounding level, and chunked
-    streaming stays bit-exact against the full call USING THE SAME pass.
-
-    tot1/tot2: (rows, 1) per-row totals T[r]; car1/car2: (1, 128)
-    all-lanes-equal incoming carries; p: scalar components of A^128.
-    Returns v1, v2 ((rows, 128) broadcast row-start states) and the next
-    carries nc1, nc2 ((1, 128)).
-    """
-    from jax.experimental.pallas import tpu as _pltpu
-
-    g = rows // 128
-    assert g * 128 == rows and 1 <= g <= 128, rows
-    p11, p12, p21, p22 = p
-    u1 = _col_to_compact(tot1, rows)
-    u2 = _col_to_compact(tot2, rows)
-    rg = jax.lax.broadcasted_iota(jnp.int32, (g, 128), 0)
-    lg = jax.lax.broadcasted_iota(jnp.int32, (g, 128), 1)
-    # fold A^128·carry into element 0 so the inclusive scan's exclusive
-    # shift directly yields row-start states (same trick as the broadcast
-    # pass, one level down)
-    f1 = p11 * car1 + p12 * car2
-    f2 = p21 * car1 + p22 * car2
-    first = (rg == 0) & (lg == 0)
-    u1 = jnp.where(first, u1 + jnp.broadcast_to(f1, (g, 128)), u1)
-    u2 = jnp.where(first, u2 + jnp.broadcast_to(f2, (g, 128)), u2)
-    # lane-inclusive scan with weight A^128; save the doubling powers for
-    # the per-lane application profile
-    q11, q12, q21, q22 = p11, p12, p21, p22
-    qpows = []
-    sh = 1
-    while sh < 128:
-        qpows.append((q11, q12, q21, q22))
-        r1 = _roll_fill(u1, sh, 1, 0.0)
-        r2 = _roll_fill(u2, sh, 1, 0.0)
-        u1 = q11 * r1 + q12 * r2 + u1
-        u2 = q21 * r1 + q22 * r2 + u2
-        q11, q12, q21, q22 = (
-            q11 * q11 + q12 * q21,
-            q11 * q12 + q12 * q22,
-            q21 * q11 + q22 * q21,
-            q21 * q12 + q22 * q22,
-        )
-        sh *= 2
-    if g > 1:
-        # cross-sublane levels with weight A^(128·128)
-        t1 = jnp.broadcast_to(u1[:, 127:128], (g, 128))
-        t2 = jnp.broadcast_to(u2[:, 127:128], (g, 128))
-        w11, w12, w21, w22 = q11, q12, q21, q22
-        sh = 1
-        while sh < g:
-            r1 = _roll_fill(t1, sh, 0, 0.0)
-            r2 = _roll_fill(t2, sh, 0, 0.0)
-            t1 = w11 * r1 + w12 * r2 + t1
-            t2 = w21 * r1 + w22 * r2 + t2
-            w11, w12, w21, w22 = (
-                w11 * w11 + w12 * w21,
-                w11 * w12 + w12 * w22,
-                w21 * w11 + w22 * w21,
-                w21 * w12 + w22 * w22,
-            )
-            sh *= 2
-        s1 = _roll_fill(t1, 1, 0, 0.0)
-        s2 = _roll_fill(t2, 1, 0, 0.0)
-        # per-lane profile Q[l] = A^(128·(l+1)) = A^128 · (A^128)^l
-        lane1 = jax.lax.broadcasted_iota(jnp.int32, (1, 128), 1)
-        P11 = jnp.ones((1, 128), jnp.float32)
-        P12 = jnp.zeros((1, 128), jnp.float32)
-        P21 = jnp.zeros((1, 128), jnp.float32)
-        P22 = jnp.ones((1, 128), jnp.float32)
-        for k, (w11_, w12_, w21_, w22_) in enumerate(qpows):
-            shk = 1 << k
-            keep = lane1 < shk
-            r11 = _pltpu.roll(P11, shk, axis=1)
-            r12 = _pltpu.roll(P12, shk, axis=1)
-            r21 = _pltpu.roll(P21, shk, axis=1)
-            r22 = _pltpu.roll(P22, shk, axis=1)
-            P11 = jnp.where(keep, P11, w11_ * r11 + w12_ * r21)
-            P12 = jnp.where(keep, P12, w11_ * r12 + w12_ * r22)
-            P21 = jnp.where(keep, P21, w21_ * r11 + w22_ * r21)
-            P22 = jnp.where(keep, P22, w21_ * r12 + w22_ * r22)
-        Q11 = p11 * P11 + p12 * P21
-        Q12 = p11 * P12 + p12 * P22
-        Q21 = p21 * P11 + p22 * P21
-        Q22 = p21 * P12 + p22 * P22
-        u1 = u1 + jnp.broadcast_to(Q11, (g, 128)) * s1 + jnp.broadcast_to(
-            Q12, (g, 128)
-        ) * s2
-        u2 = u2 + jnp.broadcast_to(Q21, (g, 128)) * s1 + jnp.broadcast_to(
-            Q22, (g, 128)
-        ) * s2
-    # next carries: the last element's inclusive value, all-lane broadcast
-    nc1 = _fill_all_from_tail1(u1[g - 1 : g, :])
-    nc2 = _fill_all_from_tail1(u2[g - 1 : g, :])
-    # scatter back: W[r, :] = U[r//128, r%128]; exclusive shift; row 0 =
-    # the raw carry (identical to the broadcast pass's final step)
-    row_idx = jax.lax.broadcasted_iota(jnp.int32, (rows, 128), 0)
-    v1 = jnp.where(
-        row_idx == 0,
-        jnp.broadcast_to(car1, (rows, 128)),
-        _roll_fill(_compact_to_rows_bcast(u1, rows), 1, 0, 0.0),
-    )
-    v2 = jnp.where(
-        row_idx == 0,
-        jnp.broadcast_to(car2, (rows, 128)),
-        _roll_fill(_compact_to_rows_bcast(u2, rows), 1, 0, 0.0),
-    )
-    return v1, v2, nc1, nc2
-
-
-def _biquad_fused_kernel(*refs, rows: int, n_sections: int, seeded: bool):
-    """All SOS sections over one flat stream tile, scalar-A block scans.
-
-    Per section: (1) lane-inclusive scan of the c-part with scalar A^(2^k)
-    compositions; (2) row totals broadcast from lane 127; (3) row-inclusive
-    scan with scalar A^(128·2^k), the incoming carry folded into row 0's
-    total (so the exclusive shift directly yields row-start states);
-    (4) per-element application via an in-kernel (1, 128) lane-power
-    profile A^l. Coefficients come through SMEM ((S, 6) scipy rows): one
-    compile per (rows, n_sections) STRUCTURE, never per filter value.
-    """
-    from jax.experimental import pallas as pl
-
-    if seeded:
-        c_ref, s_ref, x_ref, o_ref, so_ref, carry_ref = refs
-    else:
-        c_ref, x_ref, o_ref, carry_ref = refs
-        s_ref = so_ref = None
-
-    ch = pl.program_id(0)
-    t = pl.program_id(1)
-
-    @pl.when(t == 0)
-    def _init():
-        for s in range(n_sections):
-            if seeded:
-                carry_ref[2 * s : 2 * s + 1, :] = (
-                    jnp.zeros((1, 128), jnp.float32) + s_ref[s, ch, 0]
-                )
-                carry_ref[2 * s + 1 : 2 * s + 2, :] = (
-                    jnp.zeros((1, 128), jnp.float32) + s_ref[s, ch, 1]
-                )
-            else:
-                carry_ref[2 * s : 2 * s + 2, :] = jnp.zeros((2, 128), jnp.float32)
-
-    y = x_ref[0].astype(jnp.float32)
-    row_idx = jax.lax.broadcasted_iota(jnp.int32, (rows, 128), 0)
-    lane_idx1 = jax.lax.broadcasted_iota(jnp.int32, (1, 128), 1)
-
-    for s in range(n_sections):
-        b0, b1, b2 = c_ref[s, 0], c_ref[s, 1], c_ref[s, 2]
-        a1, a2 = c_ref[s, 4], c_ref[s, 5]
-        c1 = y * (b1 - a1 * b0)
-        c2 = y * (b2 - a2 * b0)
-
-        # lane-inclusive scan; A^(2^k) composed as scalars
-        p11, p12, p21, p22 = -a1, jnp.float32(1.0), -a2, jnp.float32(0.0)
-        pows = []
-        sh = 1
-        while sh < 128:
-            pows.append((p11, p12, p21, p22))
-            rc1 = _roll_fill(c1, sh, 1, 0.0)
-            rc2 = _roll_fill(c2, sh, 1, 0.0)
-            c1 = p11 * rc1 + p12 * rc2 + c1
-            c2 = p21 * rc1 + p22 * rc2 + c2
-            p11, p12, p21, p22 = (
-                p11 * p11 + p12 * p21,
-                p11 * p12 + p12 * p22,
-                p21 * p11 + p22 * p21,
-                p21 * p12 + p22 * p22,
-            )
-            sh *= 2
-        # p = A^128 now. Row totals, lane-broadcast.
-        t1 = jnp.broadcast_to(c1[:, 127:128], (rows, 128))
-        t2 = jnp.broadcast_to(c2[:, 127:128], (rows, 128))
-        # fold A^128·carry into row 0's total: the row-inclusive scan then
-        # yields C'[r] = A^(128(r+1))·carry + inclusive totals, whose
-        # exclusive shift IS the row-start state and whose last row IS the
-        # next carry — no separate carry-propagation pass
-        car1 = carry_ref[2 * s : 2 * s + 1, :]
-        car2 = carry_ref[2 * s + 1 : 2 * s + 2, :]
-        f1 = jnp.broadcast_to(p11 * car1 + p12 * car2, (rows, 128))
-        f2 = jnp.broadcast_to(p21 * car1 + p22 * car2, (rows, 128))
-        t1 = jnp.where(row_idx == 0, t1 + f1, t1)
-        t2 = jnp.where(row_idx == 0, t2 + f2, t2)
-        q11, q12, q21, q22 = p11, p12, p21, p22
-        sh = 1
-        while sh < rows:
-            rt1 = _roll_fill(t1, sh, 0, 0.0)
-            rt2 = _roll_fill(t2, sh, 0, 0.0)
-            t1 = q11 * rt1 + q12 * rt2 + t1
-            t2 = q21 * rt1 + q22 * rt2 + t2
-            q11, q12, q21, q22 = (
-                q11 * q11 + q12 * q21,
-                q11 * q12 + q12 * q22,
-                q21 * q11 + q22 * q21,
-                q21 * q12 + q22 * q22,
-            )
-            sh *= 2
-        # row-start states: exclusive shift, row 0 = the raw carry
-        v1 = jnp.where(
-            row_idx == 0,
-            jnp.broadcast_to(car1, (rows, 128)),
-            _roll_fill(t1, 1, 0, 0.0),
-        )
-        v2 = jnp.where(
-            row_idx == 0,
-            jnp.broadcast_to(car2, (rows, 128)),
-            _roll_fill(t2, 1, 0, 0.0),
-        )
-        # next carry: last row of the folded inclusive scan
-        carry_ref[2 * s : 2 * s + 1, :] = t1[rows - 1 :, :]
-        carry_ref[2 * s + 1 : 2 * s + 2, :] = t2[rows - 1 :, :]
-        # (1,128) lane-power profile P[l] = A^l via keep-fill doubling
-        P11 = jnp.ones((1, 128), jnp.float32)
-        P12 = jnp.zeros((1, 128), jnp.float32)
-        P21 = jnp.zeros((1, 128), jnp.float32)
-        P22 = jnp.ones((1, 128), jnp.float32)
-        for k, (w11, w12, w21, w22) in enumerate(pows):
-            sh = 1 << k
-            keep = lane_idx1 < sh
-            from jax.experimental.pallas import tpu as _pltpu
-
-            r11 = _pltpu.roll(P11, sh, axis=1)
-            r12 = _pltpu.roll(P12, sh, axis=1)
-            r21 = _pltpu.roll(P21, sh, axis=1)
-            r22 = _pltpu.roll(P22, sh, axis=1)
-            P11 = jnp.where(keep, P11, w11 * r11 + w12 * r21)
-            P12 = jnp.where(keep, P12, w11 * r12 + w12 * r22)
-            P21 = jnp.where(keep, P21, w21 * r11 + w22 * r21)
-            P22 = jnp.where(keep, P22, w21 * r12 + w22 * r22)
-        # element state (component 1 only feeds the output):
-        # s1[r,l] = (A^l · v[r])_1 + lane-exclusive c-prefix
-        s1 = (
-            jnp.broadcast_to(P11, (rows, 128)) * v1
-            + jnp.broadcast_to(P12, (rows, 128)) * v2
-            + _roll_fill(c1, 1, 1, 0.0)
-        )
-        y = b0 * y + s1
-
-    o_ref[0] = y
-    if seeded:
-        so_ref[0] = carry_ref[:]
-
-
-def _biquad_fused_loop_kernel(
-    *refs, rows: int, n_sections: int, seeded: bool, row_pass: str = "bcast"
-):
-    """Same algorithm as _biquad_fused_kernel with the section walk as a
-    lax.fori_loop: the body is traced ONCE, so Mosaic compile time is
-    independent of the section count (the unrolled spelling measured 323 s
-    of remote compile at 4 sections vs ~80 s for this one's single body).
-    Coefficients are read with a dynamic SMEM index; the per-section carry
-    lives in a (S*2, 128) scratch addressed with dynamic sublane slices.
-    ``row_pass='compact'`` swaps the broadcast-tile row scan for
-    :func:`_row_pass_compact` (requires rows % 128 == 0).
-    """
-    from jax.experimental import pallas as pl
-
-    if seeded:
-        c_ref, s_ref, x_ref, o_ref, so_ref, carry_ref = refs
-    else:
-        c_ref, x_ref, o_ref, carry_ref = refs
-        s_ref = so_ref = None
-
-    ch = pl.program_id(0)
-    t = pl.program_id(1)
-
-    @pl.when(t == 0)
-    def _init():
-        def init_one(s, _):
-            if seeded:
-                carry_ref[pl.ds(2 * s, 1), :] = (
-                    jnp.zeros((1, 128), jnp.float32) + s_ref[s, ch, 0]
-                )
-                carry_ref[pl.ds(2 * s + 1, 1), :] = (
-                    jnp.zeros((1, 128), jnp.float32) + s_ref[s, ch, 1]
-                )
-            else:
-                carry_ref[pl.ds(2 * s, 2), :] = jnp.zeros((2, 128), jnp.float32)
-            return 0
-
-        jax.lax.fori_loop(0, n_sections, init_one, 0)
-
-    row_idx = jax.lax.broadcasted_iota(jnp.int32, (rows, 128), 0)
-    lane_idx1 = jax.lax.broadcasted_iota(jnp.int32, (1, 128), 1)
-
-    def section_body(s, y):
-        from jax.experimental.pallas import tpu as _pltpu
-
-        b0, b1, b2 = c_ref[s, 0], c_ref[s, 1], c_ref[s, 2]
-        a1, a2 = c_ref[s, 4], c_ref[s, 5]
-        c1 = y * (b1 - a1 * b0)
-        c2 = y * (b2 - a2 * b0)
-        p11, p12, p21, p22 = -a1, jnp.float32(1.0), -a2, jnp.float32(0.0)
-        pows = []
-        sh = 1
-        while sh < 128:
-            pows.append((p11, p12, p21, p22))
-            rc1 = _roll_fill(c1, sh, 1, 0.0)
-            rc2 = _roll_fill(c2, sh, 1, 0.0)
-            c1 = p11 * rc1 + p12 * rc2 + c1
-            c2 = p21 * rc1 + p22 * rc2 + c2
-            p11, p12, p21, p22 = (
-                p11 * p11 + p12 * p21,
-                p11 * p12 + p12 * p22,
-                p21 * p11 + p22 * p21,
-                p21 * p12 + p22 * p22,
-            )
-            sh *= 2
-        car1 = carry_ref[pl.ds(2 * s, 1), :]
-        car2 = carry_ref[pl.ds(2 * s + 1, 1), :]
-        if row_pass == "compact":
-            v1, v2, nc1, nc2 = _row_pass_compact(
-                c1[:, 127:128],
-                c2[:, 127:128],
-                car1,
-                car2,
-                (p11, p12, p21, p22),
-                rows,
-            )
-            carry_ref[pl.ds(2 * s, 1), :] = nc1
-            carry_ref[pl.ds(2 * s + 1, 1), :] = nc2
-        else:
-            t1 = jnp.broadcast_to(c1[:, 127:128], (rows, 128))
-            t2 = jnp.broadcast_to(c2[:, 127:128], (rows, 128))
-            f1 = jnp.broadcast_to(p11 * car1 + p12 * car2, (rows, 128))
-            f2 = jnp.broadcast_to(p21 * car1 + p22 * car2, (rows, 128))
-            t1 = jnp.where(row_idx == 0, t1 + f1, t1)
-            t2 = jnp.where(row_idx == 0, t2 + f2, t2)
-            q11, q12, q21, q22 = p11, p12, p21, p22
-            sh = 1
-            while sh < rows:
-                rt1 = _roll_fill(t1, sh, 0, 0.0)
-                rt2 = _roll_fill(t2, sh, 0, 0.0)
-                t1 = q11 * rt1 + q12 * rt2 + t1
-                t2 = q21 * rt1 + q22 * rt2 + t2
-                q11, q12, q21, q22 = (
-                    q11 * q11 + q12 * q21,
-                    q11 * q12 + q12 * q22,
-                    q21 * q11 + q22 * q21,
-                    q21 * q12 + q22 * q22,
-                )
-                sh *= 2
-            v1 = jnp.where(
-                row_idx == 0,
-                jnp.broadcast_to(car1, (rows, 128)),
-                _roll_fill(t1, 1, 0, 0.0),
-            )
-            v2 = jnp.where(
-                row_idx == 0,
-                jnp.broadcast_to(car2, (rows, 128)),
-                _roll_fill(t2, 1, 0, 0.0),
-            )
-            carry_ref[pl.ds(2 * s, 1), :] = t1[rows - 1 :, :]
-            carry_ref[pl.ds(2 * s + 1, 1), :] = t2[rows - 1 :, :]
-        P11 = jnp.ones((1, 128), jnp.float32)
-        P12 = jnp.zeros((1, 128), jnp.float32)
-        P21 = jnp.zeros((1, 128), jnp.float32)
-        P22 = jnp.ones((1, 128), jnp.float32)
-        for k, (w11, w12, w21, w22) in enumerate(pows):
-            sh = 1 << k
-            keep = lane_idx1 < sh
-            r11 = _pltpu.roll(P11, sh, axis=1)
-            r12 = _pltpu.roll(P12, sh, axis=1)
-            r21 = _pltpu.roll(P21, sh, axis=1)
-            r22 = _pltpu.roll(P22, sh, axis=1)
-            P11 = jnp.where(keep, P11, w11 * r11 + w12 * r21)
-            P12 = jnp.where(keep, P12, w11 * r12 + w12 * r22)
-            P21 = jnp.where(keep, P21, w21 * r11 + w22 * r21)
-            P22 = jnp.where(keep, P22, w21 * r12 + w22 * r22)
-        s1 = (
-            jnp.broadcast_to(P11, (rows, 128)) * v1
-            + jnp.broadcast_to(P12, (rows, 128)) * v2
-            + _roll_fill(c1, 1, 1, 0.0)
-        )
-        return b0 * y + s1
-
-    y = jax.lax.fori_loop(
-        0, n_sections, section_body, x_ref[0].astype(jnp.float32)
-    )
-    o_ref[0] = y
-    if seeded:
-        so_ref[0] = carry_ref[:]
-
-
-def _biquad_fused_mxu_kernel(
-    *refs, rows: int, n_sections: int, seeded: bool, row_pass: str = "bcast"
-):
-    """The fused cascade with the LANE pass on the MXU (round 3).
-
-    The 7-level lane doubling scan is the kernel's largest VPU term (~70
-    elementwise ops/sample); but its operator T[j, l] = A^(l-1-j) (the
-    exclusive-scan transfer matrices) depends only on the COEFFICIENTS —
-    so it is built ONCE per kernel launch (grid step 0) into VMEM scratch
-    via a 7-step row shear of the lane-power profile, and every tile's
-    lane pass becomes four (rows, 128) @ (128, 128) HIGHEST matmuls:
-    s_ex = c1 @ T11 + c2 @ T12 (and the mirror pair). Bit-close (bf16x3).
-    Row scan, carry fold, and per-element application are unchanged from
-    :func:`_biquad_fused_loop_kernel`; the per-element lane-power profile
-    comes back from T's first row (P[l] = A * A^(l-1), l=0 fixed to I).
-    """
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as _pltpu
-
-    if seeded:
-        c_ref, s_ref, x_ref, o_ref, so_ref, carry_ref, tmat_ref = refs
-    else:
-        c_ref, x_ref, o_ref, carry_ref, tmat_ref = refs
-        s_ref = so_ref = None
-
-    ch = pl.program_id(0)
-    t = pl.program_id(1)
-    lane_idx1 = jax.lax.broadcasted_iota(jnp.int32, (1, 128), 1)
-    row_idx = jax.lax.broadcasted_iota(jnp.int32, (rows, 128), 0)
-
-    @pl.when(t == 0)
-    def _init():
-        jrow = jax.lax.broadcasted_iota(jnp.int32, (128, 128), 0)
-        lcol = jax.lax.broadcasted_iota(jnp.int32, (128, 128), 1)
-        tri = (lcol - 1 - jrow) >= 0
-
-        def build_one(s, _):
-            a1, a2 = c_ref[s, 4], c_ref[s, 5]
-            if seeded:
-                carry_ref[pl.ds(2 * s, 1), :] = (
-                    jnp.zeros((1, 128), jnp.float32) + s_ref[s, ch, 0]
-                )
-                carry_ref[pl.ds(2 * s + 1, 1), :] = (
-                    jnp.zeros((1, 128), jnp.float32) + s_ref[s, ch, 1]
-                )
-            else:
-                carry_ref[pl.ds(2 * s, 2), :] = jnp.zeros((2, 128), jnp.float32)
-            # lane-power profile P[l] = A^l by keep-fill doubling
-            w11, w12, w21, w22 = -a1, jnp.float32(1.0), -a2, jnp.float32(0.0)
-            P11 = jnp.ones((1, 128), jnp.float32)
-            P12 = jnp.zeros((1, 128), jnp.float32)
-            P21 = jnp.zeros((1, 128), jnp.float32)
-            P22 = jnp.ones((1, 128), jnp.float32)
-            sh = 1
-            while sh < 128:
-                keep = lane_idx1 < sh
-                r11 = _pltpu.roll(P11, sh, axis=1)
-                r12 = _pltpu.roll(P12, sh, axis=1)
-                r21 = _pltpu.roll(P21, sh, axis=1)
-                r22 = _pltpu.roll(P22, sh, axis=1)
-                P11 = jnp.where(keep, P11, w11 * r11 + w12 * r21)
-                P12 = jnp.where(keep, P12, w11 * r12 + w12 * r22)
-                P21 = jnp.where(keep, P21, w21 * r11 + w22 * r21)
-                P22 = jnp.where(keep, P22, w21 * r12 + w22 * r22)
-                w11, w12, w21, w22 = (
-                    w11 * w11 + w12 * w21,
-                    w11 * w12 + w12 * w22,
-                    w21 * w11 + w22 * w21,
-                    w21 * w12 + w22 * w22,
-                )
-                sh *= 2
-            # q[l] = A^(l-1): lane right-roll of P (l=0 garbage, tri-masked)
-            qs = [
-                _pltpu.roll(P11, 1, axis=1),
-                _pltpu.roll(P12, 1, axis=1),
-                _pltpu.roll(P21, 1, axis=1),
-                _pltpu.roll(P22, 1, axis=1),
-            ]
-            for k in range(4):
-                m = jnp.broadcast_to(qs[k], (128, 128))
-                for b in range(7):
-                    shb = 1 << b
-                    rowbit = ((jrow >> b) & 1) == 1
-                    m = jnp.where(rowbit, _pltpu.roll(m, shb, axis=1), m)
-                tmat_ref[pl.ds((4 * s + k) * 128, 128), :] = jnp.where(
-                    tri, m, 0.0
-                )
-            return 0
-
-        jax.lax.fori_loop(0, n_sections, build_one, 0)
-
-    hp = jax.lax.Precision.HIGHEST
-
-    def mmT(c, tm):
-        return jax.lax.dot_general(
-            c, tm, (((1,), (0,)), ((), ())), precision=hp,
-            preferred_element_type=jnp.float32,
-        )
-
-    def section_body(s, y):
-        b0, b1, b2 = c_ref[s, 0], c_ref[s, 1], c_ref[s, 2]
-        a1, a2 = c_ref[s, 4], c_ref[s, 5]
-        c1 = y * (b1 - a1 * b0)
-        c2 = y * (b2 - a2 * b0)
-        t11 = tmat_ref[pl.ds((4 * s + 0) * 128, 128), :]
-        t12 = tmat_ref[pl.ds((4 * s + 1) * 128, 128), :]
-        t21 = tmat_ref[pl.ds((4 * s + 2) * 128, 128), :]
-        t22 = tmat_ref[pl.ds((4 * s + 3) * 128, 128), :]
-        sx1 = mmT(c1, t11) + mmT(c2, t12)
-        sx2 = mmT(c1, t21) + mmT(c2, t22)
-        # row totals: inclusive[127] = A*s_ex[127] + c[127]
-        s1x, s2x = sx1[:, 127:128], sx2[:, 127:128]
-        tot1 = -a1 * s1x + s2x + c1[:, 127:128]
-        tot2 = -a2 * s1x + c2[:, 127:128]
-        # A^128 by scalar squaring (7 steps)
-        p11, p12, p21, p22 = -a1, jnp.float32(1.0), -a2, jnp.float32(0.0)
-        for _ in range(7):
-            p11, p12, p21, p22 = (
-                p11 * p11 + p12 * p21,
-                p11 * p12 + p12 * p22,
-                p21 * p11 + p22 * p21,
-                p21 * p12 + p22 * p22,
-            )
-        car1 = carry_ref[pl.ds(2 * s, 1), :]
-        car2 = carry_ref[pl.ds(2 * s + 1, 1), :]
-        if row_pass == "compact":
-            v1, v2, nc1, nc2 = _row_pass_compact(
-                tot1, tot2, car1, car2, (p11, p12, p21, p22), rows
-            )
-            carry_ref[pl.ds(2 * s, 1), :] = nc1
-            carry_ref[pl.ds(2 * s + 1, 1), :] = nc2
-        else:
-            t1 = jnp.broadcast_to(tot1, (rows, 128))
-            t2 = jnp.broadcast_to(tot2, (rows, 128))
-            f1 = jnp.broadcast_to(p11 * car1 + p12 * car2, (rows, 128))
-            f2 = jnp.broadcast_to(p21 * car1 + p22 * car2, (rows, 128))
-            t1 = jnp.where(row_idx == 0, t1 + f1, t1)
-            t2 = jnp.where(row_idx == 0, t2 + f2, t2)
-            q11, q12, q21, q22 = p11, p12, p21, p22
-            sh = 1
-            while sh < rows:
-                rt1 = _roll_fill(t1, sh, 0, 0.0)
-                rt2 = _roll_fill(t2, sh, 0, 0.0)
-                t1 = q11 * rt1 + q12 * rt2 + t1
-                t2 = q21 * rt1 + q22 * rt2 + t2
-                q11, q12, q21, q22 = (
-                    q11 * q11 + q12 * q21,
-                    q11 * q12 + q12 * q22,
-                    q21 * q11 + q22 * q21,
-                    q21 * q12 + q22 * q22,
-                )
-                sh *= 2
-            v1 = jnp.where(
-                row_idx == 0,
-                jnp.broadcast_to(car1, (rows, 128)),
-                _roll_fill(t1, 1, 0, 0.0),
-            )
-            v2 = jnp.where(
-                row_idx == 0,
-                jnp.broadcast_to(car2, (rows, 128)),
-                _roll_fill(t2, 1, 0, 0.0),
-            )
-            carry_ref[pl.ds(2 * s, 1), :] = t1[rows - 1 :, :]
-            carry_ref[pl.ds(2 * s + 1, 1), :] = t2[rows - 1 :, :]
-        # per-element profile P[l] = A^l back out of T's first row:
-        # (A A^(l-1))_11 = -a1 T11[0,l] + T21[0,l] (l >= 1); l=0 -> I
-        lane0 = lane_idx1 == 0
-        p11p = jnp.where(lane0, 1.0, -a1 * t11[0:1, :] + t21[0:1, :])
-        p12p = jnp.where(lane0, 0.0, -a1 * t12[0:1, :] + t22[0:1, :])
-        s1 = (
-            jnp.broadcast_to(p11p, (rows, 128)) * v1
-            + jnp.broadcast_to(p12p, (rows, 128)) * v2
-            + sx1
-        )
-        return b0 * y + s1
-
-    y = jax.lax.fori_loop(
-        0, n_sections, section_body, x_ref[0].astype(jnp.float32)
-    )
-    o_ref[0] = y
-    if seeded:
-        so_ref[0] = carry_ref[pl.ds(0, 2 * n_sections), :]
-
-
-def sosfilt_pallas_fused(
-    sos: jax.Array | np.ndarray,
-    x: jax.Array,
-    *,
-    tile_rows: int | None = None,
-    unroll_sections: bool = False,
-    lane_pass: str = "vpu",
-    row_pass: str = "bcast",
-) -> jax.Array:
-    """SOS cascade via the fused scalar-A Pallas kernel (see the kernel doc).
-
-    Same semantics as :func:`sosfilt`/:func:`sosfilt_pallas` (zero initial
-    state per section). One compile per (tile_rows, n_sections) structure;
-    changed coefficient VALUES never recompile (SMEM). The default
-    fori_loop section walk keeps Mosaic compile time section-count-free;
-    ``unroll_sections=True`` is the measured-equal-speed unrolled spelling
-    (323 s remote compile at 4 sections — kept for A/B only).
-    ``tile_rows=None`` auto-picks 512 for streams that fill at least one
-    such tile (measured 4.15 vs 3.79 GS/s over rows=256 at (16, 4M)/4
-    sections, BENCH_NOTES r3 tile sweep) and 256 otherwise (less padding
-    waste on short streams). ``row_pass='compact'`` runs the row-level
-    scan on a (tile_rows/128, 128) relayout instead of broadcast
-    (tile_rows, 128) tiles (see :func:`_row_pass_compact`; requires
-    tile_rows % 128 == 0).
-    """
-    import functools as _ft
-
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    if tile_rows is None:
-        tile_rows = 512 if x.shape[-1] >= 512 * 128 else 256
-    if row_pass not in ("bcast", "compact"):
-        raise ValueError(
-            f"unknown row_pass {row_pass!r}; options ('bcast', 'compact')"
-        )
-    if row_pass == "compact" and tile_rows % 128 != 0:
-        raise ValueError(
-            f"row_pass='compact' needs tile_rows % 128 == 0, got {tile_rows}"
-        )
-    sos_rows = jnp.asarray(sos, jnp.float32).reshape(-1, 6)
-    n_sec = int(sos_rows.shape[0])
-    y3d, batch, n = _to_planar_tiles(x, tile_rows)
-    nch, rtot = y3d.shape[0], y3d.shape[1]
-
-    kwargs = {}
-    if lane_pass == "mxu":
-        kern = _biquad_fused_mxu_kernel
-        scratch = [
-            pltpu.VMEM((2 * n_sec, 128), jnp.float32),
-            pltpu.VMEM((4 * n_sec * 128, 128), jnp.float32),
-        ]
-        kwargs["row_pass"] = row_pass
-    elif lane_pass == "vpu":
-        if unroll_sections:
-            if row_pass != "bcast":
-                raise ValueError(
-                    "unroll_sections supports row_pass='bcast' only"
-                )
-            kern = _biquad_fused_kernel
-        else:
-            kern = _biquad_fused_loop_kernel
-            kwargs["row_pass"] = row_pass
-        scratch = [pltpu.VMEM((2 * n_sec, 128), jnp.float32)]
-    else:
-        raise ValueError(
-            f"unknown lane_pass {lane_pass!r}; options ('vpu', 'mxu')"
-        )
-    out = pl.pallas_call(
-        _ft.partial(
-            kern,
-            rows=tile_rows,
-            n_sections=n_sec,
-            seeded=False,
-            **kwargs,
-        ),
-        out_shape=jax.ShapeDtypeStruct(y3d.shape, jnp.float32),
-        grid=(nch, rtot // tile_rows),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(
-                (1, tile_rows, 128),
-                lambda c, t: (c, t, 0),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        out_specs=pl.BlockSpec(
-            (1, tile_rows, 128),
-            lambda c, t: (c, t, 0),
-            memory_space=pltpu.VMEM,
-        ),
-        scratch_shapes=scratch,
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary", "arbitrary")
-        ),
-        interpret=jax.default_backend() != "tpu",
-    )(sos_rows, y3d)
-    return _from_planar_tiles(out, batch, n)
-
-
-def sosfilt_chunk_pallas_fused(
-    state: jax.Array,
-    sos: jax.Array,
-    x: jax.Array,
-    *,
-    tile_rows: int | None = None,
-    row_pass: str = "bcast",
-) -> tuple[jax.Array, jax.Array]:
-    """Streaming chunk through the fused scalar-A kernel (seeded carries).
-
-    Same contract as :func:`sosfilt_chunk`; tile-aligned head through the
-    kernel, sub-tile tail through the XLA chunk op (exact state hand-off,
-    as in :func:`sosfilt_chunk_pallas`). Chunked output is bit-equal to
-    the full :func:`sosfilt_pallas_fused` call with the SAME row_pass and
-    tile_rows. ``tile_rows=None`` auto-picks like the full call (512 for
-    chunks that fill such a tile — the r3 tile-sweep winner — else 256).
-    """
-    if tile_rows is None:
-        tile_rows = 512 if x.shape[-1] >= 512 * 128 else 256
-    tile = tile_rows * 128
-    n = x.shape[-1]
-    main = (n // tile) * tile
-    if main == 0:
-        return _sosfilt_chunk_xla(state, sos, x)
-    st1, y_main = _sosfilt_chunk_fused_aligned(
-        state, sos, x[..., :main], tile_rows, row_pass
-    )
-    if main == n:
-        return st1, y_main
-    st2, y_tail = _sosfilt_chunk_xla(st1, sos, x[..., main:])
-    return st2, jnp.concatenate([y_main, y_tail], axis=-1)
-
-
-@functools.partial(jax.jit, static_argnames=("tile_rows", "row_pass"))
-def _sosfilt_chunk_fused_aligned(
-    state: jax.Array,
-    sos: jax.Array,
-    x: jax.Array,
-    tile_rows: int,
-    row_pass: str = "bcast",
-) -> tuple[jax.Array, jax.Array]:
-    import functools as _ft
-
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    sos_rows = jnp.asarray(sos, jnp.float32).reshape(-1, 6)
-    n_sec = int(sos_rows.shape[0])
-    st = jnp.asarray(state, jnp.float32).reshape(n_sec, -1, 2)  # (S, C, 2)
-    y3d, batch, n = _to_planar_tiles(x, tile_rows)
-    nch, rtot = y3d.shape[0], y3d.shape[1]
-
-    out, st_out = pl.pallas_call(
-        _ft.partial(
-            _biquad_fused_loop_kernel,
-            rows=tile_rows,
-            n_sections=n_sec,
-            seeded=True,
-            row_pass=row_pass,
-        ),
-        out_shape=[
-            jax.ShapeDtypeStruct(y3d.shape, jnp.float32),
-            jax.ShapeDtypeStruct((nch, 2 * n_sec, 128), jnp.float32),
-        ],
-        grid=(nch, rtot // tile_rows),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(
-                (1, tile_rows, 128),
-                lambda c, t: (c, t, 0),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        out_specs=[
-            pl.BlockSpec(
-                (1, tile_rows, 128),
-                lambda c, t: (c, t, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (1, 2 * n_sec, 128),
-                lambda c, t: (c, 0, 0),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        scratch_shapes=[pltpu.VMEM((2 * n_sec, 128), jnp.float32)],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary", "arbitrary")
-        ),
-        interpret=jax.default_backend() != "tpu",
-    )(sos_rows, st, y3d)
-    # (C, 2S, 128) lane-broadcast -> (S, C, 2)
-    new_st = st_out[:, :, 0].reshape(nch, n_sec, 2).transpose(1, 0, 2)
-    return (
-        new_st.reshape(jnp.asarray(state).shape),
-        _from_planar_tiles(out, batch, n),
-    )
-
-
 # --- scipy-compat surface ----------------------------------------------------
 
 
@@ -1851,7 +449,7 @@ def lfilter(b, a, x: jax.Array, *, method: str = "auto") -> jax.Array:
 
     Pure-FIR coefficients (a reduces to a scalar) route to the lane-blocked
     conv; everything else converts to an SOS cascade and runs through
-    :func:`sosfilt` (same auto-dispatch to the Pallas block scan at scale).
+    :func:`sosfilt`.
     Matches scipy to float32 tolerance for stable filters.
     """
     a_np = np.atleast_1d(np.asarray(a, np.float64))
@@ -1872,8 +470,7 @@ def sosfiltfilt(sos, x: jax.Array, *, method: str = "auto") -> jax.Array:
     padding of length ``6 * (n_sections + 1)`` AND each pass seeded with
     the steady-state initial conditions (:func:`sosfilt_zi` scaled by the
     pass's first sample), so the result matches scipy everywhere, edges
-    included. The seeded passes ride the same chunk dispatch (Pallas
-    block scan at production lengths).
+    included. The seeded passes run through :func:`sosfilt_chunk`.
     """
     sos_np = np.asarray(sos, np.float64).reshape(-1, 6)
     # scipy's default padlen: 3x the cascade's effective order (trailing
@@ -2004,8 +601,7 @@ def filtfilt(b, a, x: jax.Array, *, method: str = "auto") -> jax.Array:
 
     Converts to an SOS cascade (:func:`ba_to_sos`) and runs
     :func:`sosfiltfilt` — numerically far better conditioned than the
-    direct-form transfer function at high order, and it rides the same
-    Pallas block-scan dispatch at production lengths. Matches scipy's
+    direct-form transfer function at high order. Matches scipy's
     default (odd-reflection padding) away from the reflected edges.
     """
     return sosfiltfilt(ba_to_sos(b, a), x, method=method)
@@ -2162,94 +758,25 @@ def lfiltic(b, a, y, x=None) -> np.ndarray:
     return zi
 
 
-# --- time-varying second-order sections (round 3) ------------------------------
+# --- time-varying second-order sections -------------------------------------
 #
 # LPC synthesis, adaptive notch tracking, and parameter-automated audio
 # filters all need biquads whose coefficients CHANGE along the stream. The
-# affine block-scan structure of _biquad_kernel survives unchanged: the
-# per-sample map x -> A_t x + c_t just picks up a data-dependent
-# A_t = [[-a1[t], 1], [-a2[t], 0]], so all six components ride full tiles
-# (the scalar-A fusion of _biquad_fused_kernel is unavailable by
-# construction — A_t^s differs per lane). Coefficients stream through VMEM
-# tiles shaped like the signal. Reference analog: none (the CUDA study is
-# fixed-coefficient); semantics follow the standard time-varying DF2T:
+# affine scan of _biquad_scan survives unchanged: the per-sample map
+# s -> A_t s + c_t just picks up a data-dependent
+# A_t = [[-a1[t], 1], [-a2[t], 0]], and its six leaves were per-element
+# already. Reference analog: none (the CUDA study is fixed-coefficient);
+# semantics follow the standard time-varying DF2T:
 #     y[t]  = b0[t] x[t] + s1[t-1]
 #     s1[t] = b1[t] x[t] - a1[t] y[t] + s2[t-1]
 #     s2[t] = b2[t] x[t] - a2[t] y[t]
 
 
-def _biquad_tv_kernel(*refs, rows: int, seeded: bool = False):
-    """One time-varying biquad over a flat stream tile.
+def _tv_rows(sos_t: jax.Array, batch, n: int) -> jax.Array:
+    """(S, [batch,] n, 6) per-sample rows -> (S, *batch, n, 5), a0 == 1.
 
-    Mirrors :func:`_biquad_kernel` with the SMEM scalar coefficients
-    replaced by a VMEM coefficient block ``(1, 5, rows, 128)`` holding the
-    per-sample planes ``[b0, b1, b2, a1, a2]`` (a0 pre-normalized to 1).
-    """
-    from jax.experimental import pallas as pl
-
-    if seeded:
-        c_ref, s_ref, x_ref, o_ref, so_ref, carry_ref = refs
-    else:
-        c_ref, x_ref, o_ref, carry_ref = refs
-        s_ref = so_ref = None
-
-    ch = pl.program_id(0)
-    t = pl.program_id(1)
-
-    @pl.when(t == 0)
-    def _init():
-        if seeded:
-            carry_ref[0:1, :] = jnp.zeros((1, 128), jnp.float32) + s_ref[ch, 0]
-            carry_ref[1:2, :] = jnp.zeros((1, 128), jnp.float32) + s_ref[ch, 1]
-        else:
-            carry_ref[:] = jnp.zeros((2, 128), jnp.float32)
-
-    cf = c_ref[0]
-    b0, b1, b2, a1, a2 = cf[0], cf[1], cf[2], cf[3], cf[4]
-    xf = x_ref[0].astype(jnp.float32)
-    ident = (1.0, 0.0, 0.0, 1.0, 0.0, 0.0)
-    m = (
-        -a1,
-        jnp.ones_like(xf),
-        -a2,
-        jnp.zeros_like(xf),
-        xf * (b1 - a1 * b0),
-        xf * (b2 - a2 * b0),
-    )
-
-    def scan_axis(m, axis, size):
-        s = 1
-        while s < size:
-            left = tuple(_roll_fill(v, s, axis, f) for v, f in zip(m, ident))
-            m = _compose_affine(left, m)
-            s *= 2
-        return m
-
-    m = scan_axis(m, 1, 128)
-    rowm = tuple(_fill_all_from_tail1(v) for v in m)
-    rowm = scan_axis(rowm, 0, rows)
-    exm = tuple(_roll_fill(v, 1, 0, f) for v, f in zip(rowm, ident))
-    c1 = carry_ref[0:1, :]
-    c2 = carry_ref[1:2, :]
-    s1_row = exm[0] * c1 + exm[1] * c2 + exm[4]
-    s2_row = exm[2] * c1 + exm[3] * c2 + exm[5]
-    exl = tuple(_roll_fill(v, 1, 1, f) for v, f in zip(m, ident))
-    s1 = exl[0] * s1_row + exl[1] * s2_row + exl[4]
-    o_ref[0] = b0 * xf + s1
-    lr = tuple(v[rows - 1 :, :] for v in rowm)
-    carry_ref[0:1, :] = lr[0] * c1 + lr[1] * c2 + lr[4]
-    carry_ref[1:2, :] = lr[2] * c1 + lr[3] * c2 + lr[5]
-    if seeded:
-        so_ref[0] = carry_ref[:]
-
-
-def _tv_coef_planes(sos_t: jax.Array, batch, n: int, tile_rows: int):
-    """(S, [batch,] n, 6) per-sample rows -> (S, C, 5, R, 128) VMEM planes.
-
-    Normalizes a0 per sample, broadcasts section rows shared across
-    channels, and pads the tail with identity-stable rows (b=0, a1=a2=0:
-    A = [[0,1],[0,0]], so padded state stays bounded and, the filters being
-    causal, never reaches a kept output).
+    Normalizes a0 per sample and broadcasts section rows shared across
+    channels.
     """
     sos_t = jnp.asarray(sos_t, jnp.float32)
     if sos_t.ndim == 2:
@@ -2259,417 +786,63 @@ def _tv_coef_planes(sos_t: jax.Array, batch, n: int, tile_rows: int):
             f"sos_t must end in (n={n}, 6), got {sos_t.shape[-2:]}"
         )
     nsec = sos_t.shape[0]
-    nch = int(np.prod(batch)) if batch else 1
     mid = sos_t.shape[1:-2]
     if mid == ():
-        sos_t = jnp.broadcast_to(sos_t[:, None], (nsec, nch, n, 6))
+        sos_t = jnp.broadcast_to(
+            sos_t.reshape((nsec,) + (1,) * len(batch) + (n, 6)),
+            (nsec,) + tuple(batch) + (n, 6),
+        )
+    elif int(np.prod(mid)) != int(np.prod(batch)):
+        raise ValueError(
+            f"sos_t batch dims {mid} do not match signal batch {batch}"
+        )
     else:
-        sos_t = sos_t.reshape(nsec, -1, n, 6)
-        if sos_t.shape[1] != nch:
-            raise ValueError(
-                f"sos_t batch dims {mid} do not match signal batch {batch}"
-            )
+        sos_t = sos_t.reshape((nsec,) + tuple(batch) + (n, 6))
     a0 = sos_t[..., 3:4]
-    planes = jnp.concatenate([sos_t[..., 0:3], sos_t[..., 4:6]], -1) / a0
-    # (S, C, n, 5) -> pad n to tile multiple -> (S, C, 5, R, 128)
-    from ..utils import layout
-
-    padded = layout.round_up(max(n, 1), tile_rows * 128)
-    if padded != n:
-        planes = jnp.pad(planes, ((0, 0), (0, 0), (0, padded - n), (0, 0)))
-    planes = planes.reshape(nsec, nch, padded // 128, 128, 5)
-    return jnp.moveaxis(planes, -1, 2)
+    return jnp.concatenate([sos_t[..., 0:3], sos_t[..., 4:6]], -1) / a0
 
 
-def sosfilt_tv(
-    sos_t: jax.Array,
-    x: jax.Array,
-    *,
-    tile_rows: int = 256,
-    method: str = "auto",
-) -> jax.Array:
+@jax.jit
+def sosfilt_tv(sos_t: jax.Array, x: jax.Array) -> jax.Array:
     """Time-varying SOS cascade over the last axis (zero initial state).
 
     ``sos_t``: per-sample scipy-layout section rows, shape ``(S, n, 6)``
     (coefficients shared across channels), ``(n, 6)`` (single section), or
     ``(S, *batch, n, 6)`` matching ``x``'s leading axes. ``a0`` may vary
     and is normalized per sample. Coefficients are applied AT each output
-    sample (standard time-varying DF2T; see module comment). Coefficient
-    traffic is 5 tiles per section per signal tile, so the op is
-    HBM-bound: for step-wise (per-frame) automation prefer
-    :func:`sosfilt_tv_frames`, which expands frames in-graph.
-
-    ``method``: ``"auto"`` fuses the whole cascade per tile for
-    multi-section schedules (:func:`sosfilt_tv_fused` — signal read/
-    written once instead of once PER section); ``"scan"`` keeps the
-    one-section-kernel lax.scan spelling as the A/B anchor.
+    sample (standard time-varying DF2T; see the comment above). For
+    step-wise (per-frame) automation see :func:`sosfilt_tv_frames`.
     """
-    import functools as _ft
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    from ..utils.dispatch import record_choice
-
-    if method not in ("auto", "fused", "scan"):
-        raise ValueError(f"unknown method {method!r}")
-    nsec_probe = 1 if jnp.ndim(sos_t) == 2 else np.shape(sos_t)[0]
-    if method == "fused" or (method == "auto" and nsec_probe > 1):
-        record_choice("sosfilt_tv", "fused")
-        return sosfilt_tv_fused(sos_t, x, tile_rows=tile_rows)
-    record_choice("sosfilt_tv", "scan")
-
-    y3d, batch, n = _to_planar_tiles(x, tile_rows)
-    nch, rtot = y3d.shape[0], y3d.shape[1]
-    coef = _tv_coef_planes(sos_t, batch, n, tile_rows)
-
-    section = pl.pallas_call(
-        _ft.partial(_biquad_tv_kernel, rows=tile_rows),
-        out_shape=jax.ShapeDtypeStruct(y3d.shape, jnp.float32),
-        grid=(nch, rtot // tile_rows),
-        in_specs=[
-            pl.BlockSpec(
-                (1, 5, tile_rows, 128),
-                lambda c, t: (c, 0, t, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (1, tile_rows, 128),
-                lambda c, t: (c, t, 0),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        out_specs=pl.BlockSpec(
-            (1, tile_rows, 128), lambda c, t: (c, t, 0), memory_space=pltpu.VMEM
-        ),
-        scratch_shapes=[pltpu.VMEM((2, 128), jnp.float32)],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary", "arbitrary")
-        ),
-        interpret=jax.default_backend() != "tpu",
-    )
-    y3d, _ = jax.lax.scan(lambda y, cf: (section(cf, y), None), y3d, coef)
-    return _from_planar_tiles(y3d, batch, n)
-
-
-def _tv_frames_envelope_ok(frame_len: int, tile_rows: int) -> bool:
-    """Whether the frame-aware kernel can run this (frame_len, tile_rows).
-
-    Needs whole 128-lane rows per frame and frame boundaries resolving at
-    tile granularity (frames per tile integral, or tiles per frame
-    integral); tile_rows bounds come from the compact row pass."""
-    if frame_len % 128 != 0 or tile_rows % 128 != 0:
-        return False
-    if not (128 <= tile_rows <= 16384):
-        return False
-    fl_rows = frame_len // 128
-    return tile_rows % fl_rows == 0 or fl_rows % tile_rows == 0
+    rows = _tv_rows(sos_t, x.shape[:-1], x.shape[-1])
+    y = x.astype(jnp.float32)
+    for s in range(rows.shape[0]):
+        y, _ = _biquad_scan_rows(y, rows[s])
+    return y
 
 
 def sosfilt_tv_frames(
-    sos_frames: jax.Array,
-    x: jax.Array,
-    frame_len: int,
-    *,
-    tile_rows: int = 256,
-    method: str = "auto",
-    row_pass: str = "compact",
+    sos_frames: jax.Array, x: jax.Array, frame_len: int
 ) -> jax.Array:
     """Step-wise time-varying SOS: one coefficient row per FRAME.
 
     ``sos_frames``: ``(S, n_frames, 6)`` or ``(n_frames, 6)`` or
     ``(S, *batch, n_frames, 6)``; frame ``f`` governs samples
     ``[f*frame_len, (f+1)*frame_len)``. ``x.shape[-1]`` may be at most
-    ``n_frames * frame_len`` (a short tail reuses the last frame's rows
-    implicitly via truncation of the expanded schedule).
-
-    ``method``: ``"frames"`` = the frame-aware kernel — per-frame rows go
-    to HBM as compact lane blocks and expand to per-sample planes in VMEM
-    (one exact selection matmul per section per tile), cutting the
-    expanded path's dominant coefficient traffic (20 of 28 B/sample,
-    BENCH_NOTES roofline) by ``frame_len/128``x. Needs
-    ``frame_len % 128 == 0`` and frame/tile boundaries to nest
-    (:func:`_tv_frames_envelope_ok`). ``"expand"`` = materialize
-    per-sample planes and run :func:`sosfilt_tv` (any frame_len; the
-    round-4 spelling, kept as the parity anchor). ``"auto"`` = frames
-    when the envelope fits, else expand.
+    ``n_frames * frame_len`` (a short tail truncates the last frame). The
+    frames expand to per-sample rows in-graph and run :func:`sosfilt_tv`.
     """
+    sos_frames = _frames_to_rows(sos_frames, x.shape[-1], frame_len)
+    return sosfilt_tv(sos_frames, x)
+
+
+def _frames_to_rows(sos_frames, n: int, frame_len: int) -> jax.Array:
     sos_frames = jnp.asarray(sos_frames, jnp.float32)
     if sos_frames.ndim == 2:
         sos_frames = sos_frames[None]
-    n = x.shape[-1]
     nf = sos_frames.shape[-2]
     if nf * frame_len < n:
-        raise ValueError(
-            f"{nf} frames x {frame_len} < signal length {n}"
-        )
-    if method not in ("auto", "frames", "expand"):
-        raise ValueError(f"unknown method {method!r}")
-    frames_ok = _tv_frames_envelope_ok(frame_len, tile_rows)
-    if method == "frames" and not frames_ok:
-        raise ValueError(
-            f"method='frames' needs frame_len % 128 == 0 and frame/tile "
-            f"nesting; got frame_len={frame_len}, tile_rows={tile_rows}"
-        )
-    if method == "auto":
-        method = "frames" if frames_ok else "expand"
-    from ..utils.dispatch import record_choice
-
-    record_choice("sosfilt_tv_frames", method)
-    if method == "frames":
-        return _sosfilt_tv_frames_pallas(
-            sos_frames, x, frame_len, tile_rows, row_pass
-        )
-    expanded = jnp.repeat(sos_frames, frame_len, axis=-2)[..., :n, :]
-    return sosfilt_tv(expanded, x, tile_rows=tile_rows)
-
-
-def _tv_frame_coef_lanes(sos_frames: jax.Array, batch, f_need: int):
-    """(S, [batch,] F, 6) per-frame rows -> (C, F_pad, S*640) lane blocks.
-
-    Per frame row, section ``s``'s lane block ``[s*640, (s+1)*640)`` holds
-    the five coefficients ``[b0, b1, b2, a1, a2]`` (a0 normalized away),
-    each broadcast across its own 128 lanes; frames sit on the sublane
-    axis, padded past the schedule with identity-stable rows (b = 0,
-    a1 = a2 = 0 — bounded state, never reaches kept output). This is the
-    compact HBM form the frame-aware kernel expands in VMEM with ONE
-    exact selection matmul per tile (VERDICT r4 item 1: the expanded
-    path's jnp.repeat paid 20 of its 28 B/sample roofline bound on
-    per-sample planes).
-    """
-    sos_frames = jnp.asarray(sos_frames, jnp.float32)
-    if sos_frames.ndim == 2:
-        sos_frames = sos_frames[None]
-    nsec = sos_frames.shape[0]
-    nf = sos_frames.shape[-2]
-    nch = int(np.prod(batch)) if batch else 1
-    mid = sos_frames.shape[1:-2]
-    if mid == ():
-        sos_frames = jnp.broadcast_to(
-            sos_frames[:, None], (nsec, nch, nf, 6)
-        )
-    else:
-        sos_frames = sos_frames.reshape(nsec, -1, nf, 6)
-        if sos_frames.shape[1] != nch:
-            raise ValueError(
-                f"sos_frames batch dims {mid} do not match signal batch"
-            )
-    a0 = sos_frames[..., 3:4]
-    rows5 = (
-        jnp.concatenate([sos_frames[..., 0:3], sos_frames[..., 4:6]], -1)
-        / a0
-    )
-    if f_need > nf:
-        rows5 = jnp.pad(rows5, ((0, 0), (0, 0), (0, f_need - nf), (0, 0)))
-    else:
-        rows5 = rows5[:, :, :f_need]
-    lanes = jnp.broadcast_to(rows5[..., None], rows5.shape + (128,))
-    # (S, C, F, 5, 128) -> (C, F, S, 640) -> (C, F, S*640)
-    lanes = lanes.reshape(nsec, nch, f_need, 5 * 128)
-    lanes = jnp.moveaxis(lanes, 0, 2)  # (C, F, S, 640)
-    return lanes.reshape(nch, f_need, nsec * 640)
-
-
-def _biquad_tv_frames_kernel(
-    *refs, rows: int, n_sections: int, fl_rows: int, fpt: int,
-    seeded: bool, row_pass: str = "compact"
-):
-    """All TV sections over one tile, coefficients fetched PER FRAME.
-
-    Same affine-scan machinery as :func:`_biquad_tv_fused_kernel`, but the
-    coefficient operand is a compact (1, S, fpt, 640) block (fpt frames x
-    5 lane-broadcast coefficient groups) instead of 5 full per-sample
-    planes. Expansion to (rows, 128) planes happens here in VMEM via one
-    exact 0/1 selection matmul per section (HIGHEST precision — value
-    pass-through, the :func:`_compact_to_rows_bcast` trick), so HBM only
-    ever carries one row per frame.
-    """
-    from jax.experimental import pallas as pl
-
-    if seeded:
-        c_ref, s_ref, x_ref, o_ref, so_ref, carry_ref = refs
-    else:
-        c_ref, x_ref, o_ref, carry_ref = refs
-        s_ref = so_ref = None
-
-    ch = pl.program_id(0)
-    t = pl.program_id(1)
-
-    @pl.when(t == 0)
-    def _init():
-        for s in range(n_sections):
-            if seeded:
-                carry_ref[2 * s : 2 * s + 1, :] = (
-                    jnp.zeros((1, 128), jnp.float32) + s_ref[s, ch, 0]
-                )
-                carry_ref[2 * s + 1 : 2 * s + 2, :] = (
-                    jnp.zeros((1, 128), jnp.float32) + s_ref[s, ch, 1]
-                )
-            else:
-                carry_ref[2 * s : 2 * s + 2, :] = jnp.zeros(
-                    (2, 128), jnp.float32
-                )
-
-    y = x_ref[0].astype(jnp.float32)
-    ident = (1.0, 0.0, 0.0, 1.0, 0.0, 0.0)
-
-    def scan_axis(m, axis, size):
-        s = 1
-        while s < size:
-            left = tuple(
-                _roll_fill(v, s, axis, f) for v, f in zip(m, ident)
-            )
-            m = _compose_affine(left, m)
-            s *= 2
-        return m
-
-    cf = c_ref[0]  # (fpt, S*640)
-    if fpt == 1:
-        ex_all = jnp.broadcast_to(cf, (rows, n_sections * 640))
-    else:
-        # ONE exact 0/1 selection matmul expands every section's frame
-        # rows to per-sample lanes (value pass-through at HIGHEST)
-        ridx = jax.lax.broadcasted_iota(jnp.int32, (rows, fpt), 0)
-        fidx = jax.lax.broadcasted_iota(jnp.int32, (rows, fpt), 1)
-        esel = jnp.where(ridx // fl_rows == fidx, 1.0, 0.0).astype(
-            jnp.float32
-        )
-        ex_all = jax.lax.dot_general(
-            esel, cf, (((1,), (0,)), ((), ())),
-            precision=jax.lax.Precision.HIGHEST,
-            preferred_element_type=jnp.float32,
-        )
-
-    for s in range(n_sections):
-        o = s * 640
-        b0 = ex_all[:, o : o + 128]
-        b1 = ex_all[:, o + 128 : o + 256]
-        b2 = ex_all[:, o + 256 : o + 384]
-        a1 = ex_all[:, o + 384 : o + 512]
-        a2 = ex_all[:, o + 512 : o + 640]
-        m = (
-            -a1,
-            jnp.ones_like(y),
-            -a2,
-            jnp.zeros_like(y),
-            y * (b1 - a1 * b0),
-            y * (b2 - a2 * b0),
-        )
-        m = scan_axis(m, 1, 128)
-        c1 = carry_ref[2 * s : 2 * s + 1, :]
-        c2 = carry_ref[2 * s + 1 : 2 * s + 2, :]
-        if row_pass == "compact":
-            s1_row, s2_row, nc1, nc2 = _row_pass_compact_tv(m, c1, c2, rows)
-            carry_ref[2 * s : 2 * s + 1, :] = nc1
-            carry_ref[2 * s + 1 : 2 * s + 2, :] = nc2
-        else:
-            rowm = tuple(_fill_all_from_tail1(v) for v in m)
-            rowm = scan_axis(rowm, 0, rows)
-            exm = tuple(_roll_fill(v, 1, 0, f) for v, f in zip(rowm, ident))
-            s1_row = exm[0] * c1 + exm[1] * c2 + exm[4]
-            s2_row = exm[2] * c1 + exm[3] * c2 + exm[5]
-            lr = tuple(v[rows - 1 :, :] for v in rowm)
-            carry_ref[2 * s : 2 * s + 1, :] = lr[0] * c1 + lr[1] * c2 + lr[4]
-            carry_ref[2 * s + 1 : 2 * s + 2, :] = lr[2] * c1 + lr[3] * c2 + lr[5]
-        exl = tuple(_roll_fill(v, 1, 1, f) for v, f in zip(m, ident))
-        s1 = exl[0] * s1_row + exl[1] * s2_row + exl[4]
-        y = b0 * y + s1
-
-    o_ref[0] = y
-    if seeded:
-        so_ref[0] = carry_ref[:]
-
-
-def _tv_frames_pallas_call(
-    nch: int, rtot: int, nsec: int, frame_len: int, tile_rows: int,
-    seeded: bool, row_pass: str = "compact",
-):
-    """Shared pallas_call builder for the frame-aware TV kernel."""
-    import functools as _ft
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    fl_rows = frame_len // 128
-    fpt = max(1, tile_rows // fl_rows)
-    if tile_rows % fl_rows == 0:
-        cmap = lambda c, t: (c, t, 0)  # noqa: E731
-    else:
-        tpf = fl_rows // tile_rows
-        cmap = lambda c, t: (c, t // tpf, 0)  # noqa: E731
-
-    in_specs = [
-        pl.BlockSpec((1, fpt, nsec * 640), cmap, memory_space=pltpu.VMEM),
-    ]
-    out_shape = [
-        jax.ShapeDtypeStruct((nch, rtot, 128), jnp.float32),
-    ]
-    out_specs = [
-        pl.BlockSpec(
-            (1, tile_rows, 128), lambda c, t: (c, t, 0),
-            memory_space=pltpu.VMEM,
-        ),
-    ]
-    if seeded:
-        in_specs.append(pl.BlockSpec(memory_space=pltpu.SMEM))
-        out_shape.append(
-            jax.ShapeDtypeStruct((nch, 2 * nsec, 128), jnp.float32)
-        )
-        out_specs.append(
-            pl.BlockSpec(
-                (1, 2 * nsec, 128), lambda c, t: (c, 0, 0),
-                memory_space=pltpu.VMEM,
-            )
-        )
-    in_specs.append(
-        pl.BlockSpec(
-            (1, tile_rows, 128), lambda c, t: (c, t, 0),
-            memory_space=pltpu.VMEM,
-        )
-    )
-    return pl.pallas_call(
-        _ft.partial(
-            _biquad_tv_frames_kernel,
-            rows=tile_rows,
-            n_sections=nsec,
-            fl_rows=fl_rows,
-            fpt=fpt,
-            seeded=seeded,
-            row_pass=row_pass,
-        ),
-        out_shape=out_shape if seeded else out_shape[0],
-        grid=(nch, rtot // tile_rows),
-        in_specs=in_specs,
-        out_specs=out_specs if seeded else out_specs[0],
-        scratch_shapes=[pltpu.VMEM((2 * nsec, 128), jnp.float32)],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary", "arbitrary")
-        ),
-        interpret=jax.default_backend() != "tpu",
-    )
-
-
-@functools.partial(
-    jax.jit, static_argnames=("frame_len", "tile_rows", "row_pass")
-)
-def _sosfilt_tv_frames_pallas(
-    sos_frames, x, frame_len: int, tile_rows: int, row_pass: str = "compact"
-):
-    y3d, batch, n = _to_planar_tiles(x, tile_rows)
-    nch, rtot = y3d.shape[0], y3d.shape[1]
-    fl_rows = frame_len // 128
-    fpt = max(1, tile_rows // fl_rows)
-    f_need = -(-rtot // fl_rows)
-    f_need = -(-f_need // fpt) * fpt  # whole coefficient blocks
-    sos_frames = jnp.asarray(sos_frames, jnp.float32)
-    if sos_frames.ndim == 2:
-        sos_frames = sos_frames[None]
-    nsec = sos_frames.shape[0]
-    coef = _tv_frame_coef_lanes(sos_frames, batch, f_need)
-    call = _tv_frames_pallas_call(
-        nch, rtot, nsec, frame_len, tile_rows, seeded=False,
-        row_pass=row_pass,
-    )
-    out = call(coef, y3d)
-    return _from_planar_tiles(out, batch, n)
+        raise ValueError(f"{nf} frames x {frame_len} < signal length {n}")
+    return jnp.repeat(sos_frames, frame_len, axis=-2)[..., :n, :]
 
 
 def sosfilt_tv_frames_chunk(
@@ -2677,168 +850,39 @@ def sosfilt_tv_frames_chunk(
     sos_frames: jax.Array,
     x: jax.Array,
     frame_len: int,
-    *,
-    tile_rows: int = 256,
 ) -> tuple[jax.Array, jax.Array]:
     """Streaming frame-wise TV SOS chunk (state contract of
     :func:`sosfilt_chunk`: ``(S, *batch, 2)`` DF2T sections).
 
     Chunks must start on frame boundaries: ``sos_frames`` covers THIS
     chunk from its first sample (the vocoder contract — callers feed
-    whole frames). The tile-aligned head runs the seeded frame-aware
-    kernel; a sub-tile tail runs the seeded XLA sample scan on the
-    expanded tail rows, keeping the hand-off exact.
+    whole frames).
     """
-    sos_frames = jnp.asarray(sos_frames, jnp.float32)
-    if sos_frames.ndim == 2:
-        sos_frames = sos_frames[None]
-    n = x.shape[-1]
-    nf = sos_frames.shape[-2]
-    if nf * frame_len < n:
-        raise ValueError(f"{nf} frames x {frame_len} < chunk length {n}")
-    if not _tv_frames_envelope_ok(frame_len, tile_rows):
-        expanded = jnp.repeat(sos_frames, frame_len, axis=-2)[..., :n, :]
-        return sosfilt_tv_chunk(state, expanded, x, tile_rows=tile_rows)
-    tile = tile_rows * 128
-    main = (n // tile) * tile
-    if main == 0:
-        expanded = jnp.repeat(sos_frames, frame_len, axis=-2)[..., :n, :]
-        return _sosfilt_tv_chunk_xla(state, expanded, x)
-    st1, y_main = _sosfilt_tv_frames_chunk_aligned(
-        state, sos_frames, x[..., :main], frame_len, tile_rows
-    )
-    if main == n:
-        return st1, y_main
-    f_lo = main // frame_len
-    tail_rows = jnp.repeat(
-        sos_frames[..., f_lo:, :], frame_len, axis=-2
-    )[..., main - f_lo * frame_len : n - f_lo * frame_len, :]
-    st2, y_tail = _sosfilt_tv_chunk_xla(st1, tail_rows, x[..., main:])
-    return st2, jnp.concatenate([y_main, y_tail], axis=-1)
+    rows = _frames_to_rows(sos_frames, x.shape[-1], frame_len)
+    return sosfilt_tv_chunk(state, rows, x)
 
 
-@functools.partial(jax.jit, static_argnames=("frame_len", "tile_rows"))
-def _sosfilt_tv_frames_chunk_aligned(
-    state, sos_frames, x, frame_len: int, tile_rows: int
-):
-    y3d, batch, n = _to_planar_tiles(x, tile_rows)
-    nch, rtot = y3d.shape[0], y3d.shape[1]
-    fl_rows = frame_len // 128
-    fpt = max(1, tile_rows // fl_rows)
-    f_need = -(-rtot // fl_rows)
-    f_need = -(-f_need // fpt) * fpt
-    sos_frames = jnp.asarray(sos_frames, jnp.float32)
-    if sos_frames.ndim == 2:
-        sos_frames = sos_frames[None]
-    nsec = sos_frames.shape[0]
-    coef = _tv_frame_coef_lanes(sos_frames, batch, f_need)
-    st = jnp.asarray(state, jnp.float32).reshape(nsec, nch, 2)
-    call = _tv_frames_pallas_call(
-        nch, rtot, nsec, frame_len, tile_rows, seeded=True
-    )
-    out, so = call(coef, st, y3d)
-    new_st = jnp.stack(
-        [so[:, 0::2, 0], so[:, 1::2, 0]], axis=-1
-    )  # (C, S, 2)
-    new_st = jnp.moveaxis(new_st, 0, 1).reshape(jnp.asarray(state).shape)
-    return new_st, _from_planar_tiles(out, batch, n)
-
-
+@jax.jit
 def sosfilt_tv_chunk(
-    state: jax.Array,
-    sos_t: jax.Array,
-    x: jax.Array,
-    *,
-    tile_rows: int = 256,
+    state: jax.Array, sos_t: jax.Array, x: jax.Array
 ) -> tuple[jax.Array, jax.Array]:
     """Streaming time-varying SOS chunk (same state contract as
-    :func:`sosfilt_chunk`: ``state`` is ``(S, *batch, 2)`` DF2T sections).
+    :func:`sosfilt_chunk`: ``state`` is ``(S, *batch, 2)`` DF2T sections)."""
+    rows = _tv_rows(sos_t, x.shape[:-1], x.shape[-1])
+    st = jnp.asarray(state, jnp.float32)
+    y = x.astype(jnp.float32)
+    new_states = []
+    for s in range(rows.shape[0]):
+        y, s_out = _biquad_scan_rows(y, rows[s], s0=st[s])
+        new_states.append(s_out)
+    return jnp.stack(new_states, axis=0).reshape(st.shape), y
 
-    The tile-aligned head runs the seeded Pallas kernel; a sub-tile tail
-    runs the XLA sample scan seeded with the head's out-state, keeping the
-    hand-off exact (cf. :func:`sosfilt_chunk_pallas`).
-    """
-    tile = tile_rows * 128
-    n = x.shape[-1]
-    main = (n // tile) * tile
-    if main == 0:
-        return _sosfilt_tv_chunk_xla(state, sos_t, x)
-    st1, y_main = _sosfilt_tv_chunk_aligned(
-        state, sos_t[..., :main, :], x[..., :main], tile_rows
-    )
-    if main == n:
-        return st1, y_main
-    st2, y_tail = _sosfilt_tv_chunk_xla(
-        st1, sos_t[..., main:, :], x[..., main:]
-    )
-    return st2, jnp.concatenate([y_main, y_tail], axis=-1)
-
-
-@functools.partial(jax.jit, static_argnames=("tile_rows",))
-def _sosfilt_tv_chunk_aligned(state, sos_t, x, tile_rows: int):
-    import functools as _ft
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    y3d, batch, n = _to_planar_tiles(x, tile_rows)
-    nch, rtot = y3d.shape[0], y3d.shape[1]
-    coef = _tv_coef_planes(sos_t, batch, n, tile_rows)
-    nsec = coef.shape[0]
-    st = jnp.asarray(state, jnp.float32).reshape(nsec, nch, 2)
-
-    section = pl.pallas_call(
-        _ft.partial(_biquad_tv_kernel, rows=tile_rows, seeded=True),
-        out_shape=[
-            jax.ShapeDtypeStruct(y3d.shape, jnp.float32),
-            jax.ShapeDtypeStruct((nch, 2, 128), jnp.float32),
-        ],
-        grid=(nch, rtot // tile_rows),
-        in_specs=[
-            pl.BlockSpec(
-                (1, 5, tile_rows, 128),
-                lambda c, t: (c, 0, t, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(
-                (1, tile_rows, 128),
-                lambda c, t: (c, t, 0),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        out_specs=[
-            pl.BlockSpec(
-                (1, tile_rows, 128),
-                lambda c, t: (c, t, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (1, 2, 128), lambda c, t: (c, 0, 0), memory_space=pltpu.VMEM
-            ),
-        ],
-        scratch_shapes=[pltpu.VMEM((2, 128), jnp.float32)],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary", "arbitrary")
-        ),
-        interpret=jax.default_backend() != "tpu",
-    )
-
-    def step(y, xs):
-        cf, st_c2 = xs
-        y2, st_out = section(cf, st_c2, y)
-        return y2, st_out[:, :, 0]
-
-    y3d, new_st = jax.lax.scan(step, y3d, (coef, st))
-    return (
-        new_st.reshape(jnp.asarray(state).shape),
-        _from_planar_tiles(y3d, batch, n),
-    )
 
 
 @jax.jit
 def _sosfilt_tv_chunk_xla(state, sos_t, x):
-    """Per-sample lax.scan spelling — the seeded XLA anchor for short
-    tails and the TV parity reference on any backend."""
+    """Per-sample lax.scan spelling — serial over T; the TV parity
+    reference for :func:`sosfilt_tv_chunk`."""
     n = x.shape[-1]
     batch = x.shape[:-1]
     nch = int(np.prod(batch)) if batch else 1
@@ -2872,221 +916,3 @@ def _sosfilt_tv_chunk_xla(state, sos_t, x):
         sample, (st,), (xf.T, jnp.moveaxis(sos_n, 2, 0))
     )
     return st.reshape(jnp.asarray(state).shape), y.T.reshape(batch + (n,))
-
-
-def _row_pass_compact_tv(m, car1, car2, rows):
-    """Time-varying edition of :func:`_row_pass_compact` (round 3).
-
-    The TV row pass composes SIX affine-map components on full
-    (rows, 128) broadcast tiles — ~30 full-tile ops per doubling level,
-    the fused TV kernel's largest term. Here the six per-row total-map
-    columns relay into (rows/128, 128) tiles, the composition scan runs
-    on 1-vreg tiles, the exclusive cross-row composite is applied to the
-    CARRY while still compact (so only the two resulting state
-    components scatter back, not six matrices).
-
-    m: 6-tuple of (rows, 128) lane-inclusive affine composites (the
-    kernel's lane-scan output); car1/car2: (1, 128) all-lanes-equal
-    carry state. Returns s1_row, s2_row ((rows, 128) broadcast row-start
-    states) and the next carries nc1, nc2 ((1, 128)).
-    """
-    g = rows // 128
-    assert g * 128 == rows and 1 <= g <= 128, rows
-    ident = (1.0, 0.0, 0.0, 1.0, 0.0, 0.0)
-    u = tuple(_col_to_compact(v[:, 127:128], rows) for v in m)
-    sh = 1
-    while sh < 128:
-        left = tuple(_roll_fill(v, sh, 1, f) for v, f in zip(u, ident))
-        u = _compose_affine(left, u)
-        sh *= 2
-    if g > 1:
-        t6 = tuple(jnp.broadcast_to(v[:, 127:128], (g, 128)) for v in u)
-        sh = 1
-        while sh < g:
-            left = tuple(_roll_fill(v, sh, 0, f) for v, f in zip(t6, ident))
-            t6 = _compose_affine(left, t6)
-            sh *= 2
-        rex = tuple(_roll_fill(v, 1, 0, f) for v, f in zip(t6, ident))
-        cb1 = jnp.broadcast_to(car1, (g, 128))
-        cb2 = jnp.broadcast_to(car2, (g, 128))
-        w1 = rex[0] * cb1 + rex[1] * cb2 + rex[4]
-        w2 = rex[2] * cb1 + rex[3] * cb2 + rex[5]
-    else:
-        w1 = jnp.broadcast_to(car1, (g, 128))
-        w2 = jnp.broadcast_to(car2, (g, 128))
-    s1_incl = u[0] * w1 + u[1] * w2 + u[4]
-    s2_incl = u[2] * w1 + u[3] * w2 + u[5]
-    nc1 = _fill_all_from_tail1(s1_incl[g - 1 : g, :])
-    nc2 = _fill_all_from_tail1(s2_incl[g - 1 : g, :])
-    row_idx = jax.lax.broadcasted_iota(jnp.int32, (rows, 128), 0)
-    s1_row = jnp.where(
-        row_idx == 0,
-        jnp.broadcast_to(car1, (rows, 128)),
-        _roll_fill(_compact_to_rows_bcast(s1_incl, rows), 1, 0, 0.0),
-    )
-    s2_row = jnp.where(
-        row_idx == 0,
-        jnp.broadcast_to(car2, (rows, 128)),
-        _roll_fill(_compact_to_rows_bcast(s2_incl, rows), 1, 0, 0.0),
-    )
-    return s1_row, s2_row, nc1, nc2
-
-
-def _biquad_tv_fused_kernel(
-    *refs, rows: int, n_sections: int, seeded: bool, row_pass: str = "bcast"
-):
-    """ALL time-varying sections over one stream tile — x read once, y
-    written once, coefficients streamed as a (1, S, 5, rows, 128) block.
-
-    The per-section machinery is :func:`_biquad_tv_kernel`'s full-tile
-    affine scan (A_t is data-dependent, so the fixed-coefficient cascade's
-    scalar-A trick does not apply); fusing the section walk removes the
-    per-section HBM round trip of the lax.scan spelling (2 tiles in/out
-    per section -> 1 signal tile + the 5S coefficient planes total).
-    """
-    from jax.experimental import pallas as pl
-
-    if seeded:
-        c_ref, s_ref, x_ref, o_ref, so_ref, carry_ref = refs
-    else:
-        c_ref, x_ref, o_ref, carry_ref = refs
-        s_ref = so_ref = None
-
-    ch = pl.program_id(0)
-    t = pl.program_id(1)
-
-    @pl.when(t == 0)
-    def _init():
-        for s in range(n_sections):
-            if seeded:
-                carry_ref[2 * s : 2 * s + 1, :] = (
-                    jnp.zeros((1, 128), jnp.float32) + s_ref[s, ch, 0]
-                )
-                carry_ref[2 * s + 1 : 2 * s + 2, :] = (
-                    jnp.zeros((1, 128), jnp.float32) + s_ref[s, ch, 1]
-                )
-            else:
-                carry_ref[2 * s : 2 * s + 2, :] = jnp.zeros(
-                    (2, 128), jnp.float32
-                )
-
-    y = x_ref[0].astype(jnp.float32)
-    ident = (1.0, 0.0, 0.0, 1.0, 0.0, 0.0)
-
-    def scan_axis(m, axis, size):
-        s = 1
-        while s < size:
-            left = tuple(
-                _roll_fill(v, s, axis, f) for v, f in zip(m, ident)
-            )
-            m = _compose_affine(left, m)
-            s *= 2
-        return m
-
-    for s in range(n_sections):
-        cf = c_ref[0, s]
-        b0, b1, b2, a1, a2 = cf[0], cf[1], cf[2], cf[3], cf[4]
-        m = (
-            -a1,
-            jnp.ones_like(y),
-            -a2,
-            jnp.zeros_like(y),
-            y * (b1 - a1 * b0),
-            y * (b2 - a2 * b0),
-        )
-        m = scan_axis(m, 1, 128)
-        c1 = carry_ref[2 * s : 2 * s + 1, :]
-        c2 = carry_ref[2 * s + 1 : 2 * s + 2, :]
-        if row_pass == "compact":
-            s1_row, s2_row, nc1, nc2 = _row_pass_compact_tv(m, c1, c2, rows)
-            carry_ref[2 * s : 2 * s + 1, :] = nc1
-            carry_ref[2 * s + 1 : 2 * s + 2, :] = nc2
-        else:
-            rowm = tuple(_fill_all_from_tail1(v) for v in m)
-            rowm = scan_axis(rowm, 0, rows)
-            exm = tuple(_roll_fill(v, 1, 0, f) for v, f in zip(rowm, ident))
-            s1_row = exm[0] * c1 + exm[1] * c2 + exm[4]
-            s2_row = exm[2] * c1 + exm[3] * c2 + exm[5]
-            lr = tuple(v[rows - 1 :, :] for v in rowm)
-            carry_ref[2 * s : 2 * s + 1, :] = lr[0] * c1 + lr[1] * c2 + lr[4]
-            carry_ref[2 * s + 1 : 2 * s + 2, :] = lr[2] * c1 + lr[3] * c2 + lr[5]
-        exl = tuple(_roll_fill(v, 1, 1, f) for v, f in zip(m, ident))
-        s1 = exl[0] * s1_row + exl[1] * s2_row + exl[4]
-        out = b0 * y + s1
-        y = out
-
-    o_ref[0] = y
-    if seeded:
-        so_ref[0] = carry_ref[:]
-
-
-def sosfilt_tv_fused(
-    sos_t: jax.Array,
-    x: jax.Array,
-    *,
-    tile_rows: int = 256,
-    row_pass: str | None = None,
-) -> jax.Array:
-    """Fused-cascade spelling of :func:`sosfilt_tv` (same semantics): one
-    kernel runs every section per tile. Default for multi-section
-    schedules via ``sosfilt_tv(..., method="auto")``.
-    ``row_pass='compact'`` relays the row-level composition onto
-    (tile_rows/128, 128) tiles (:func:`_row_pass_compact_tv`). Unlike the
-    time-invariant cascade (where broadcast wins — r3_sosfilt_rowpass_ab:
-    4.15 vs 2.65 GS/s), the TV kernel's per-element coefficient planes make
-    the full-tile doubling levels pure overhead, so compact is the measured
-    default here (0.90 vs 0.83 GS/s on chip) whenever tile_rows permits."""
-    import functools as _ft
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    # compact relayout requires rows = g*128 with 1 <= g <= 128
-    # (_row_pass_compact_tv); out-of-range tile_rows fall back to bcast
-    # rather than tripping the kernel's internal assertion at trace time
-    compact_ok = tile_rows % 128 == 0 and 128 <= tile_rows <= 16384
-    if row_pass is None:
-        row_pass = "compact" if compact_ok else "bcast"
-    if row_pass == "compact" and not compact_ok:
-        raise ValueError(
-            "row_pass='compact' needs tile_rows % 128 == 0 and "
-            f"128 <= tile_rows <= 16384, got {tile_rows}"
-        )
-    y3d, batch, n = _to_planar_tiles(x, tile_rows)
-    nch, rtot = y3d.shape[0], y3d.shape[1]
-    coef = _tv_coef_planes(sos_t, batch, n, tile_rows)  # (S, C, 5, R, 128)
-    nsec = coef.shape[0]
-    # block layout: (1, S, 5, tile_rows, 128) per (channel, tile) step
-    coef = jnp.moveaxis(coef, 1, 0)  # (C, S, 5, R, 128)
-
-    out = pl.pallas_call(
-        _ft.partial(
-            _biquad_tv_fused_kernel,
-            rows=tile_rows,
-            n_sections=nsec,
-            seeded=False,
-            row_pass=row_pass,
-        ),
-        out_shape=jax.ShapeDtypeStruct(y3d.shape, jnp.float32),
-        grid=(nch, rtot // tile_rows),
-        in_specs=[
-            pl.BlockSpec(
-                (1, nsec, 5, tile_rows, 128),
-                lambda c, t: (c, 0, 0, t, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (1, tile_rows, 128),
-                lambda c, t: (c, t, 0),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        out_specs=pl.BlockSpec(
-            (1, tile_rows, 128), lambda c, t: (c, t, 0), memory_space=pltpu.VMEM
-        ),
-        scratch_shapes=[pltpu.VMEM((2 * nsec, 128), jnp.float32)],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary", "arbitrary")
-        ),
-        interpret=jax.default_backend() != "tpu",
-    )(coef, y3d)
-    return _from_planar_tiles(out, batch, n)

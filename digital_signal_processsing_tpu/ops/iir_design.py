@@ -5,7 +5,7 @@ Butterworth/Chebyshev functions: one zpk pipeline gives every family
 (Butterworth, Chebyshev I/II, elliptic/Cauer) every band type
 (lowpass/highpass/bandpass/bandstop), mirroring scipy.signal.iirfilter's
 architecture without depending on scipy at runtime. All host-side float64
-numpy — filters run on TPU through ops/iir.sosfilt; design is a trace-time
+numpy — filters run on device through ops/iir.sosfilt; design is a trace-time
 constant like the reference's host-side coefficient computation
 (profilable_sm_averager.cu:65's precomputed inverseGrade, one level up).
 

@@ -1,4 +1,4 @@
-"""Linear-predictive coding, frame-parallel on TPU.
+"""Linear-predictive coding, frame-parallel on device.
 
 Analysis (autocorrelation method + Levinson-Durbin) and synthesis (the
 time-varying all-pole vocoder filter) for speech/audio codecs. The
@@ -6,11 +6,11 @@ reference CUDA study has no LPC analog; this rides the round-3
 time-varying filtering surface (``ops.iir.sosfilt_tv``) and exists so a
 user gets the classic frame-wise LPC pipeline without leaving the device.
 
-TPU-first design notes:
+Design notes:
 
 - **Levinson-Durbin without gathers**: the order-``m`` step needs the
-  reversed prefixes ``r[m-i]`` / ``a[m-i]``; per-sample gathers are
-  catastrophic on TPU, so the flip is an einsum against a precomputed
+  reversed prefixes ``r[m-i]`` / ``a[m-i]``; rather than per-sample
+  gathers, the flip is an einsum against a precomputed
   one-hot ``(p, p+1, p+1)`` constant — each recursion step is two tiny
   matvecs, batched over all frames at once in one ``lax.scan`` over order.
 - **Frame-parallel synthesis**: an all-pole filter is sequential along
@@ -167,29 +167,24 @@ def lpc_synthesis(
     Identical (up to float32 association) to running the sequential
     recurrence ``y[t] = g_f e[t] - sum_i a_f[i] y[t-i]`` sample by sample.
 
-    ``method``: ``"refine"`` = :func:`lpc_synthesis_refine` (the VMEM
-    kernel with state passing through the actual recurrence — 8.7x the
-    scan spelling on chip AND the most accurate for damped polynomials;
-    r4_lpc_ab.log); ``"pallas"`` = the same kernel with the affine
-    compose for entry states (:func:`lpc_synthesis_pallas`, bit-class-
-    compatible with scan); ``"scan"`` = the lax.scan + zero-input-basis
-    spelling (``p`` floats per sample of basis traffic); ``"factored"``
-    = :func:`lpc_synthesis_factored` (host root factoring -> biquad
-    cascade — the near-unit-circle engine; see its transition contract);
-    ``"auto"`` = factored for concrete frame-CONSTANT sets with max pole
-    radius >= 0.95, else refine whenever ``frame_len % 8 == 0``, else
-    scan.
+    ``method``: ``"refine"`` = :func:`lpc_synthesis_refine` (state passing
+    through the actual recurrence — the most accurate for damped
+    polynomials); ``"scan"`` = the lax.scan + zero-input-basis spelling
+    with the affine compose for entry states (``p`` floats per sample of
+    basis traffic); ``"factored"`` = :func:`lpc_synthesis_factored` (host
+    root factoring -> biquad cascade — the near-unit-circle engine; see
+    its transition contract); ``"auto"`` = factored for concrete
+    frame-CONSTANT sets with max pole radius >= 0.95, else refine.
 
-    ACCURACY ENVELOPE (measured round 4, logs in BENCH_NOTES "LPC
-    compose conditioning"): the frame-entry states of the ``scan`` and
-    ``pallas`` spellings ride an f32 affine compose whose A^L products
+    ACCURACY ENVELOPE: the frame-entry states of the ``scan`` spelling
+    ride an f32 affine compose whose A^L products
     are ill-conditioned for strongly resonant polynomials — relative
     error grows from ~1e-6 at pole radius 0.8 to O(1) by radius ~0.95
     (order 12, frame 64) and overflows near the circle. LPC polynomials
     from :func:`levinson` on real signals sit well inside the envelope
     (codec practice adds bandwidth expansion precisely to keep them
-    there), and ``method="refine"`` is both faster and more accurate
-    for that damped case. For poles hugging the unit circle the
+    there), and ``method="refine"`` is more accurate for that damped
+    case. For poles hugging the unit circle the
     direct-form frame-parallel spellings all degrade —
     ``method="factored"`` is the engine for that regime (round 5):
     measured 2e-6 -> 6e-5 rel err at radius 0.95 -> 0.999 where refine
@@ -197,7 +192,7 @@ def lpc_synthesis(
     with the cascade transition contract documented on
     :func:`lpc_synthesis_factored`.
     """
-    if method not in ("auto", "scan", "pallas", "refine", "factored"):
+    if method not in ("auto", "scan", "refine", "factored"):
         raise ValueError(f"unknown method {method!r}")
     if method == "factored":
         return lpc_synthesis_factored(a, gain, excitation, frame_len)
@@ -233,21 +228,12 @@ def _lpc_synthesis_core(
     *,
     method: str,
 ) -> jax.Array:
-    if frame_len % _LPC_BT == 0:
+    if method in ("auto", "refine"):
         # auto rides refine: for every polynomial the compose handles
         # accurately (the damped envelope above) refine matches or beats
-        # it, at 6.5x the speed (r4_lpc_ab.log) — and it cannot overflow
-        # where the compose does. Explicit method="pallas"/"scan" keep
-        # the compose spelling as anchors.
-        if method in ("auto", "refine"):
-            return lpc_synthesis_refine(a, gain, excitation, frame_len)
-        if method == "pallas":
-            return lpc_synthesis_pallas(a, gain, excitation, frame_len)
-    elif method in ("refine", "pallas"):
-        raise ValueError(
-            f"method {method!r}: frame_len must be a multiple of "
-            f"{_LPC_BT}, got {frame_len}"
-        )
+        # it, and it cannot overflow where the compose does. Explicit
+        # method="scan" keeps the compose spelling as the anchor.
+        return lpc_synthesis_refine(a, gain, excitation, frame_len)
     a = jnp.asarray(a, jnp.float32)
     p = a.shape[-1] - 1
     batch = a.shape[:-2]
@@ -293,69 +279,27 @@ def _lpc_synthesis_core(
     return jnp.moveaxis(y, 0, -1).reshape(batch + (nf * L,))
 
 
-def _lpc_synth_kernel(a_ref, s0_ref, e_ref, y_ref, z_ref, st, *, bt, p):
-    """Seeded all-pole recurrence over one time block of one frame tile.
+def _lpc_synth_pass(a1: jax.Array, s0: jax.Array, e: jax.Array):
+    """One seeded synthesis sweep over every frame at once.
 
-    Frames ride the (8, 128) tile; time is the sequential inner grid axis,
-    ``bt`` steps unrolled per call with the p-deep output history held in
-    VMEM scratch across blocks. Each step is p multiply-subtracts plus a
-    p-register shift — the data-dependent minimum for a dense feedback
-    polynomial (no basis tensor, no per-step HBM carry round trip: the
-    lax.scan spelling's 800 MB W materialization and 3 GB of carry traffic
-    at the 128x512x256 row are exactly what this kernel deletes).
+    ``a1``: ``(N, p)`` feedback coefficients, ``s0``: ``(N, p)`` entry
+    states (newest output first), ``e``: ``(N, L)`` scaled excitation.
+    Returns ``(y (N, L), end state (N, p))``. A ``lax.scan`` over the
+    ``L`` steps with frames in the batch: each step is p multiply-subtracts
+    (in the order of the sequential recurrence) plus a p-register shift,
+    the data-dependent minimum for a dense feedback polynomial — no basis
+    tensor, no per-step matrix work.
     """
-    import jax.experimental.pallas as pl
+    p = a1.shape[-1]
 
-    tb = pl.program_id(1)
-
-    @pl.when(tb == 0)
-    def _init():
-        st[:] = s0_ref[:]
-
-    for i in range(bt):
-        acc = e_ref[i]
+    def step(s, et):
+        acc = et
         for j in range(p):
-            acc = acc - a_ref[j] * st[j]
-        for j in reversed(range(1, p)):
-            st[j] = st[j - 1]
-        st[0] = acc
-        y_ref[i] = acc
-    z_ref[:] = st[:]
+            acc = acc - a1[:, j] * s[:, j]
+        return jnp.concatenate([acc[:, None], s[:, :-1]], -1), acc
 
-
-def _lpc_synth_pass(a_t, s0_t, e_t, *, bt):
-    """One seeded synthesis sweep: (p, R, 128) coeffs/state + (L, R, 128)
-    excitation -> (y (L, R, 128), end state (p, R, 128))."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    p, r, _ = a_t.shape
-    L = e_t.shape[0]
-    return pl.pallas_call(
-        functools.partial(_lpc_synth_kernel, bt=bt, p=p),
-        out_shape=[
-            jax.ShapeDtypeStruct(e_t.shape, jnp.float32),
-            jax.ShapeDtypeStruct(a_t.shape, jnp.float32),
-        ],
-        grid=(r // 8, L // bt),
-        in_specs=[
-            pl.BlockSpec((p, 8, 128), lambda g, tb: (0, g, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((p, 8, 128), lambda g, tb: (0, g, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((bt, 8, 128), lambda g, tb: (tb, g, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((bt, 8, 128), lambda g, tb: (tb, g, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((p, 8, 128), lambda g, tb: (0, g, 0), memory_space=pltpu.VMEM),
-        ],
-        scratch_shapes=[pltpu.VMEM((p, 8, 128), jnp.float32)],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary", "arbitrary")
-        ),
-        interpret=jax.default_backend() != "tpu",
-    )(a_t, s0_t, e_t)
-
-
-_LPC_BT = 8  # unrolled time steps per kernel call (L must divide)
+    z, y = jax.lax.scan(step, s0, e.T)
+    return y.T, z
 
 
 @functools.partial(jax.jit, static_argnames=("frame_len", "sweeps"))
@@ -376,117 +320,45 @@ def lpc_synthesis_refine(
     propagate one frame forward — so for the DAMPED polynomials LPC
     analysis of real signals produces (poles well inside the circle, the
     codec-practice envelope), two sweeps reach the sequential-f32 floor
-    and this path is BOTH faster (no batched (p, p) matrix work at all)
-    and far more accurate than the compose (see lpc_synthesis notes on
-    the compose's f32 conditioning). NOT suitable for poles hugging the
+    and this path is far more accurate than the compose (see
+    lpc_synthesis notes on the compose's f32 conditioning), with no
+    batched (p, p) matrix work at all. NOT suitable for poles hugging the
     unit circle: |pole|^frame_len ~ 1 means errors stop contracting and
-    correctness would need ~F sweeps. Measured on chip:
-    logs/r4_onchip/r4_lpc_ab.log.
+    correctness would need ~F sweeps.
     """
     a = jnp.asarray(a, jnp.float32)
     p = a.shape[-1] - 1
     batch = a.shape[:-2]
     nf = a.shape[-2]
     L = frame_len
-    if L % _LPC_BT != 0:
-        raise ValueError(f"frame_len must be a multiple of {_LPC_BT}, got {L}")
     e = jnp.asarray(excitation, jnp.float32).reshape(batch + (nf, L))
     e = e * jnp.asarray(gain, jnp.float32)[..., None]
-
     ft = int(np.prod(batch, dtype=np.int64)) * nf if batch else nf
-    fpad = -(-ft // 1024) * 1024
-    r = fpad // 128
+    # Frames padded to a multiple of 128 rows: every frame then sits in
+    # the vectorized body of the compiled step, so its result does not
+    # depend on how many frames share the call (a sharded run matches the
+    # unsharded one bit for bit).
+    fpad = -(-ft // 128) * 128
 
-    def to_tiles(v, k):
-        flat = v.reshape(ft, k)
-        flat = jnp.pad(flat, ((0, fpad - ft), (0, 0)))
-        return flat.T.reshape(k, r, 128)
+    def rows(v, k):
+        return jnp.pad(v.reshape(ft, k), ((0, fpad - ft), (0, 0)))
 
-    def from_tiles(v_t, k):
-        return v_t.reshape(k, fpad).T[:ft]
-
-    a_t = to_tiles(a[..., 1:], p)
-    e_t = to_tiles(e, L)
-    s0_t = jnp.zeros((p, r, 128), jnp.float32)
-    y_t = None
+    a1 = rows(a[..., 1:], p)
+    e = rows(e, L)
+    s0 = jnp.zeros((fpad, p), jnp.float32)
     for sweep in range(sweeps + 1):
-        y_t, z_t = _lpc_synth_pass(a_t, s0_t, e_t, bt=_LPC_BT)
+        y, z = _lpc_synth_pass(a1, s0, e)
         if sweep == sweeps:
             break  # the last sweep's outputs are final; no re-seed needed
         # entry of frame f <- end of frame f-1, zero at each stream's head
-        z = from_tiles(z_t, p).reshape(batch + (nf, p))
-        s0 = jnp.concatenate(
-            [jnp.zeros_like(z[..., :1, :]), z[..., :-1, :]], axis=-2
+        z = z[:ft].reshape(batch + (nf, p))
+        s0 = rows(
+            jnp.concatenate(
+                [jnp.zeros_like(z[..., :1, :]), z[..., :-1, :]], axis=-2
+            ),
+            p,
         )
-        s0_t = to_tiles(s0, p)
-    y = from_tiles(y_t, L)
-    return y.reshape(batch + (nf * L,))
-
-
-@functools.partial(jax.jit, static_argnames=("frame_len",))
-def lpc_synthesis_pallas(
-    a: jax.Array,
-    gain: jax.Array,
-    excitation: jax.Array,
-    frame_len: int,
-) -> jax.Array:
-    """:func:`lpc_synthesis` on the two-pass Pallas engine.
-
-    Pass 1 runs every frame from rest to get the zero-state end states;
-    the exact frame-entry states come from the same log-depth affine
-    compose as the scan spelling (A^L by repeated squaring +
-    associative_scan over frames); pass 2 re-runs the recurrence seeded —
-    bit-identical association to the sequential filter within each frame.
-    Requires ``frame_len % 8 == 0``.
-    """
-    a = jnp.asarray(a, jnp.float32)
-    p = a.shape[-1] - 1
-    batch = a.shape[:-2]
-    nf = a.shape[-2]
-    L = frame_len
-    if L % _LPC_BT != 0:
-        raise ValueError(f"frame_len must be a multiple of {_LPC_BT}, got {L}")
-    e = jnp.asarray(excitation, jnp.float32).reshape(batch + (nf, L))
-    e = e * jnp.asarray(gain, jnp.float32)[..., None]
-
-    ft = int(np.prod(batch, dtype=np.int64)) * nf if batch else nf
-    fpad = -(-ft // 1024) * 1024
-    r = fpad // 128
-
-    def to_tiles(v, k):
-        # (..., F, k) -> (k, R, 128) frame-lane layout
-        flat = v.reshape(ft, k)
-        flat = jnp.pad(flat, ((0, fpad - ft), (0, 0)))
-        return flat.T.reshape(k, r, 128)
-
-    a_t = to_tiles(a[..., 1:], p)
-    e_t = to_tiles(e, L)
-    zeros_t = jnp.zeros((p, r, 128), jnp.float32)
-
-    # pass 1: zero-state end states per frame
-    _, z_t = _lpc_synth_pass(a_t, zeros_t, e_t, bt=_LPC_BT)
-    z = z_t.reshape(p, fpad).T[:ft].reshape(batch + (nf, p))
-
-    # frame-entry states: the scan spelling's exact affine compose
-    A = _companion(a)
-    M = _matrix_power(A, L)
-
-    def compose(left, right):
-        m1, z1 = left
-        m2, z2 = right
-        return m2 @ m1, jnp.einsum("...ij,...j->...i", m2, z1) + z2
-
-    Mi, zi = jax.lax.associative_scan(compose, (M, z), axis=len(batch))
-    del Mi
-    s0 = jnp.concatenate(
-        [jnp.zeros_like(zi[..., :1, :]), zi[..., :-1, :]], axis=-2
-    )
-
-    # pass 2: seeded synthesis
-    s0_t = to_tiles(s0, p)
-    y_t, _ = _lpc_synth_pass(a_t, s0_t, e_t, bt=_LPC_BT)
-    y = y_t.reshape(L, fpad).T[:ft]
-    return y.reshape(batch + (nf * L,))
+    return y[:ft].reshape(batch + (nf * L,))
 
 
 def lpc_synthesis_ref(a, gain, excitation, frame_len):
@@ -590,8 +462,8 @@ def lpc_synthesis_factored(
     contracting at |pole|^L ~ 1), each factored biquad's recurrence is
     well-conditioned individually, so the cascade tracks the sequential
     float64 model within the sequential-f32 floor even at radius 0.999
-    (tests/test_lpc.py::test_factored_resonant_sweep). Runs on the
-    measured :func:`ops.iir.sosfilt_tv_frames` kernel path.
+    (tests/test_lpc.py::test_factored_resonant_sweep). Runs through
+    :func:`ops.iir.sosfilt_tv_frames`.
 
     ``a`` must be CONCRETE (host-factorable), not a jit tracer.
 

@@ -8,7 +8,7 @@ functions (they run once, at filter-design time, like the IIR designers
 (``dlsim``/``dstep``/``dimpulse``) runs on device as a ``lax.scan`` over
 the (tiny) state with the batch axes vectorized — for long streams with
 a scalar output prefer converting to SOS (``ops.iir_design.zpk2sos``)
-and the Pallas ``sosfilt`` path, which is the throughput spelling.
+the ``sosfilt`` scan, which is the throughput spelling.
 """
 
 from __future__ import annotations

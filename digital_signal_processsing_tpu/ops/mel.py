@@ -2,14 +2,14 @@
 
 Log-mel spectrograms and MFCCs are the serving front end of every speech /
 audio-ML pipeline; this module closes that gap on top of the framework's
-own spectral engine (``ops.fft.stft`` — MXU-factored DFT on TPU). North-star
+own spectral engine (``ops.fft.stft``). North-star
 scope beside the vocoder/LPC family (the CUDA reference has no feature
 extractors; SURVEY.md §6).
 
-TPU-first choices:
+Design choices:
 - the mel filterbank and the DCT are DESIGNED on the host (numpy, cached)
   and APPLIED as single dense matmuls over the spectrogram — (frames, bins)
-  x (bins, mels) and (frames, mels) x (mels, ceps) ride the MXU; no
+  x (bins, mels) and (frames, mels) x (mels, ceps); no
   per-filter loops, no gathers;
 - delta features are a fixed regression filter over the frame axis spelled
   as shift-and-add on static pads (width is tiny), fusing into the
@@ -162,7 +162,7 @@ def melspectrogram(
     """Mel power spectrogram: (..., frames, n_mels).
 
     ``|STFT|^2`` from the framework engine (``method`` as in
-    ``ops.fft.stft``) followed by ONE (bins, mels) matmul on the MXU.
+    ``ops.fft.stft``) followed by ONE (bins, mels) matmul.
     """
     from .fft import spectrogram
 
@@ -201,7 +201,7 @@ def mfcc(
 ) -> jax.Array:
     """Mel-frequency cepstral coefficients: (..., frames, n_mfcc).
 
-    Orthonormal DCT-II of the log-mel spectrogram (one more MXU matmul);
+    Orthonormal DCT-II of the log-mel spectrogram (one more matmul);
     ``lifter`` > 0 applies the standard sinusoidal liftering
     1 + (L/2) sin(pi (k+1) / L).
     """

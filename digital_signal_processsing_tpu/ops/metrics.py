@@ -7,7 +7,7 @@ leakage width, everything else counted as noise. Complements the sweep
 harness's throughput metrics with signal-quality metrics — the other half
 of a production DSP qualification story (north-star scope, SURVEY.md §6).
 
-TPU-first: one rFFT (the framework engine) + masked reductions with
+Shape: one rFFT (the framework engine) + masked reductions with
 traced bin indices — fully jittable, no host round trips; harmonics
 beyond Nyquist are folded back (aliased) like a real ADC measurement.
 """

@@ -1,20 +1,14 @@
-"""Public moving-average API: one function, the whole variant zoo behind it.
+"""Public moving-average API: one function, the engines behind it.
 
 The reference ships nine binaries, one per implementation strategy
 (SURVEY.md §0); a framework ships one op with a ``method`` switch and an
-``auto`` policy that encodes the regime split its README documents
-(README.md:10-12: small windows memory-bound -> direct; large windows
-compute-bound -> scan).
+``auto`` policy.
 
 Methods:
-- ``auto``            regime-split dispatch (default)
-- ``windowed``        carry-free fused windowed sum (fastest on v5e)
-- ``scan``            fused Pallas scan + windowed diff (Blelloch in-tile)
-- ``scan_hillis``     same, literal stride-doubling in-tile scan
-- ``scan_mxu``        same, exact bf16-limb MXU-matmul in-tile scan
-- ``direct``          Pallas k-shifted-adds kernel (small windows)
-- ``xla_scan``        jnp.cumsum anchor (no Pallas)
-- ``xla_direct``      lax.reduce_window anchor (no Pallas)
+- ``auto``            the windowed GPU kernel (ops/pallas_windowed.py)
+                      where the backend has it, else ``xla_scan``
+- ``xla_scan``        jnp.cumsum + windowed difference (ops/scan_xla.py)
+- ``xla_direct``      lax.reduce_window O(k) sum (ops/direct_xla.py)
 - ``golden``          NumPy oracle (host; for tests/debugging)
 
 All are bit-exact against the golden model for window <= 65535.
@@ -23,32 +17,27 @@ All are bit-exact against the golden model for window <= 65535.
 from __future__ import annotations
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 
 from ..golden import moving_average_golden
-from ..utils.numerics import MAX_EXACT_WINDOW  # noqa: F401 (public re-export)
+from ..utils import backend, layout
+from ..utils.dispatch import record_choice
+from ..utils.numerics import MAX_EXACT_WINDOW
 from .direct_xla import moving_average_reduce_window
-from .pallas_direct import MAX_DIRECT_WINDOW, direct_averager_pallas
-from .pallas_scan import scan_averager_pallas
+from .pallas_windowed import windowed_average_pallas, windowed_supported
 from .scan_xla import moving_average_xla
 
-# The carry-free windowed kernel beats the direct O(k) kernel at EVERY
-# window on v5e (64M samples: windowed w=2 1.03 ms vs direct w=2 1.82 ms),
-# so auto no longer dispatches to direct; the regime split the reference
-# documents (README.md:10-12) survives only in the benchmark ladder.
-_AUTO_DIRECT_MAX = 0
+METHODS = ("auto", "xla_scan", "xla_direct", "golden")
 
-METHODS = (
-    "auto",
-    "windowed",
-    "scan",
-    "scan_hillis",
-    "scan_mxu",
-    "direct",
-    "xla_scan",
-    "xla_direct",
-    "golden",
-)
+
+def auto_method(window: int, channels: int, platform: str | None = None) -> str:
+    """What ``method='auto'`` runs on ``platform`` (default: this backend)."""
+    if backend.has_engine(backend.TRITON, platform) and windowed_supported(
+        window, channels
+    ):
+        return "windowed"
+    return "xla_scan"
 
 
 def moving_average(
@@ -65,109 +54,37 @@ def moving_average(
     reference CPU model (profilable_moving_averager.cpp:14-37) for
     window <= 65535.
 
-    **Packed transport**: an int32 ``x`` is interpreted as the little-endian
-    PAIR view of the int16 stream (``np.ndarray.view(np.int32)`` — free on
-    the host, emitted by io/dataset.py's ``packed=True`` loaders) and the
-    packed output view is returned. int16 tiles relayout at ~358 GB/s on
-    v5e vs 637 GB/s for int32 — packing at the transport layer buys the
-    difference for lane-aligned even-channel streams.
+    An int32 ``x`` is read as the little-endian PAIR view of the int16
+    stream (``np.ndarray.view(np.int32)``, as io/dataset.py's
+    ``packed=True`` loaders emit it); it is unpacked on the device and the
+    output is returned in the same pair view.
     """
     if channels < 1:
         raise ValueError(f"channels must be >= 1, got {channels}")
+    if method not in METHODS:
+        raise ValueError(f"unknown method {method!r}; options {METHODS}")
     if getattr(x, "dtype", None) == np.int32:
-        return _moving_average_packed(x, window, channels, method=method)
+        if method == "golden":
+            raise ValueError("packed (int32 pair-view) input needs a device method")
+        x16 = jax.lax.bitcast_convert_type(jnp.asarray(x), jnp.int16).reshape(-1)
+        y16 = moving_average(x16, window, channels, method=method)
+        return jax.lax.bitcast_convert_type(y16.reshape(-1, 2), jnp.int32)
     if x.shape[0] % channels != 0:
         raise ValueError(
             f"stream length {x.shape[0]} not a multiple of channels {channels}"
         )
-    from ..utils.dispatch import record_choice
-
+    if method != "golden":
+        layout.validate_window(window, MAX_EXACT_WINDOW)
     if method == "auto":
-        from .pallas_scan import supports_channels
-
-        if not supports_channels(channels):
-            method = "xla_scan"  # lane layout needs channels | 128
-        elif window <= _AUTO_DIRECT_MAX:
-            method = "direct"
-        else:
-            method = "windowed"
+        method = auto_method(window, channels)
+    record_choice("moving_average", method)
     if method == "golden":
-        record_choice("moving_average", "golden")
         return moving_average_golden(np.asarray(x), window, channels)
     if method == "windowed":
-        from .pallas_scan import (
-            moving_average_two_pass,
-            windowed_averager_pallas,
-            windowed_supported,
-        )
-
-        if not windowed_supported(window, channels):
-            # bit-exact but a different perf class (~3x) — keep it observable
-            record_choice("moving_average", "windowed:two_pass_fallback")
-            return moving_average_two_pass(x, window, channels)
-        record_choice("moving_average", "windowed")
-        return windowed_averager_pallas(x, window, channels)
-    if method in ("scan", "scan_hillis", "scan_mxu"):
-        variant = {"scan": "blelloch", "scan_hillis": "hillis_steele",
-                   "scan_mxu": "mxu"}[method]
-        from .pallas_scan import MAX_TILE_ROWS, moving_average_two_pass
-
-        if window * channels > MAX_TILE_ROWS * 128:
-            record_choice("moving_average", f"{method}:two_pass_fallback")
-            return moving_average_two_pass(x, window, channels, variant=variant)
-        record_choice("moving_average", method)
-        return scan_averager_pallas(x, window, channels, variant=variant)
-    if method == "direct":
-        if window > MAX_DIRECT_WINDOW:
-            raise ValueError(
-                f"direct method supports window <= {MAX_DIRECT_WINDOW}; "
-                f"use method='scan' for window={window}"
-            )
-        record_choice("moving_average", "direct")
-        return direct_averager_pallas(x, window, channels)
+        return windowed_average_pallas(jnp.asarray(x), window, channels)
     if method == "xla_scan":
-        record_choice("moving_average", "xla_scan")
         return moving_average_xla(x, window, channels)
-    if method == "xla_direct":
-        record_choice("moving_average", "xla_direct")
-        return moving_average_reduce_window(x, window, channels)
-    raise ValueError(f"unknown method {method!r}; options {METHODS}")
+    return moving_average_reduce_window(x, window, channels)
 
 
-def _moving_average_packed(x32, window: int, channels: int, *, method: str):
-    """Dispatch for int32 pair-view input (see moving_average docstring)."""
-    from ..utils.dispatch import record_choice
-    from .pallas_scan import packed_supported, windowed_averager_packed
-
-    if method not in ("auto", "windowed"):
-        raise ValueError(
-            f"packed (int32 pair-view) input supports method='auto'/'windowed', "
-            f"got {method!r}"
-        )
-    n32 = x32.shape[0]
-    if (2 * n32) % channels != 0:
-        raise ValueError(
-            f"packed stream of {n32} pairs not a multiple of channels {channels}"
-        )
-    if packed_supported(window, channels) and n32 > 0 and n32 % 128 == 0:
-        record_choice("moving_average", "windowed_packed")
-        return windowed_averager_packed(x32, window, channels)
-    # rare fallback (odd channels/odd shapes): unpack on device — two
-    # shifts + interleave, NOT a bitcast (device bitcasts relayout at
-    # catastrophic cost on this backend; see BENCH_NOTES.md)
-    import jax.numpy as jnp
-
-    lo = jnp.right_shift(jnp.left_shift(x32, 16), 16)
-    hi = jnp.right_shift(x32, 16)
-    x16 = jnp.stack([lo, hi], axis=-1).reshape(-1).astype(jnp.int16)
-    y16 = moving_average(x16, window, channels, method="auto")
-    # recorded AFTER the recursive dispatch so the observable choice names
-    # the fallback, not the inner int16 method it borrowed
-    record_choice("moving_average", "windowed_packed:unpack_fallback")
-    pair = y16.reshape(-1, 2).astype(jnp.int32)
-    return jnp.bitwise_or(
-        jnp.left_shift(pair[:, 1], 16), jnp.bitwise_and(pair[:, 0], 0xFFFF)
-    )
-
-
-__all__ = ["moving_average", "METHODS", "MAX_EXACT_WINDOW"]
+__all__ = ["moving_average", "auto_method", "METHODS", "MAX_EXACT_WINDOW"]

@@ -1,7 +1,7 @@
 """Peak detection: a jittable on-device peak mask + scipy-style find_peaks.
 
 Beyond-reference analysis surface (spectrum inspection, tone pickers for
-the wideband scanner). The split mirrors the TPU constraint: peak INDEX
+the wideband scanner). The split mirrors the jit constraint: peak INDEX
 lists are dynamically shaped (not expressible under jit), so the device op
 returns a same-shape boolean mask (compose with jnp.where/top_k), and the
 scipy.signal.find_peaks-compatible index/property API runs host-side on
@@ -210,7 +210,7 @@ def argrelmin(x, *, order: int = 1):
 #
 # The Du-Kibbe-Lin ridge-line method (Bioinformatics 22(17), 2006): peaks
 # persist as connected relative maxima across wavelet scales while noise
-# does not. The CWT itself rides the MXU correlation bank
+# does not. The CWT itself rides the correlation bank
 # (ops.wavelets.cwt); ridge tracking is a host-side O(scales x peaks)
 # bookkeeping pass over the (few) per-scale maxima.
 
@@ -314,7 +314,7 @@ def find_peaks_cwt(
     window_size=None,
 ):
     """Wavelet-persistence peak finding (scipy.signal.find_peaks_cwt):
-    ricker CWT (MXU correlation bank), ridge-line linking across scales,
+    ricker CWT (correlation bank), ridge-line linking across scales,
     SNR/length filtering. Robust where plain find_peaks drowns in noise."""
     from .wavelets import cwt as _cwt, ricker as _ricker
 

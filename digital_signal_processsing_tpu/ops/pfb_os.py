@@ -20,7 +20,7 @@ Structure (derived and brute-force-validated; D = N/2):
              T[m, φ] = sum_k (-1)^{km} Y[k,m] e^{2πikφ/N}
              (per-phase FIR alternating between phase columns by lag parity)
 
-All channel transforms are explicit DFT matmuls (MXU; no XLA small-FFT).
+All channel transforms are explicit DFT matmuls (no small FFTs).
 """
 
 from __future__ import annotations
@@ -64,16 +64,8 @@ def _analyze_planar(x: jax.Array, h: jax.Array, n: int):
     k = h.shape[0]
     p = -(-k // n)
     hq = jnp.pad(h.astype(jnp.float32), (0, p * n - k)).reshape(p, n)
-    import jax as _jax
-
-    if _jax.default_backend() == "tpu" and p > 1:
-        # round 3: fused per-tile branch FIR + DFT (see channelizer.py)
-        from .channelizer import fused_branch_dft
-
-        re, im = fused_branch_dft(w, hq, sign=1, dilation=2)
-    else:
-        v = branch_fir(w[None], hq, dilation=2)[0]  # (S, N)
-        re, im = dft_matmul(v, None, n)
+    v = branch_fir(w[None], hq, dilation=2)[0]  # (S, N)
+    re, im = dft_matmul(v, None, n)
     sgn = _kms_sign(n, s)
     return re.T * sgn, im.T * sgn
 

@@ -2,11 +2,9 @@
 
 North-star audio scope (the CUDA reference has no time-frequency
 modification; SURVEY.md §2) — the classic Flanagan/Dolson phase vocoder,
-built TPU-first:
+built as batched array ops:
 
-- analysis/synthesis ride :func:`ops.fft.stft`/:func:`istft` (the
-  MXU-factored DFT on TPU; XLA's native FFT is the measured bottleneck
-  of every spectral op — BENCH_NOTES r2);
+- analysis/synthesis ride :func:`ops.fft.stft`/:func:`istft`;
 - phase propagation is fully BATCHED: the per-bin instantaneous
   frequency comes from wrapped frame-to-frame phase differences
   (elementwise), and the synthesis phase ramp is one ``jnp.cumsum`` over

@@ -1,10 +1,10 @@
 """Order-statistic and adaptive smoothing filters: medfilt, rank, Wiener.
 
 Beyond-reference framework surface (scipy.signal parity: medfilt,
-order_filter-style rank filtering, wiener). TPU shape: a sliding-window
+order_filter-style rank filtering, wiener). Shape: a sliding-window
 order statistic is a sort over a stacked-shift axis — k shifted VIEWS of
-the stream (no gathers), sorted along the small window axis on the VPU.
-The Wiener filter's local moments ride the same centered lane-blocked MXU
+the stream (no gathers), sorted along the small window axis.
+The Wiener filter's local moments ride the same centered lane-blocked
 conv as every other windowed op (ops/fir.blocked_causal_conv).
 """
 
@@ -31,8 +31,8 @@ def _sliding_windows(xf: jax.Array, k: int) -> jax.Array:
 def medfilt(x: jax.Array, kernel_size: int = 3) -> jax.Array:
     """Sliding-window median (scipy.signal.medfilt: odd window, zero pad).
 
-    Sorts the k stacked shifts per sample — O(k log k) work on the VPU but
-    zero gathers (TPU gathers measured 0.03 GS/s, BENCH_NOTES r2); fine
+    Sorts the k stacked shifts per sample — O(k log k) work but zero
+    gathers; fine
     for the small apertures medians are used at.
     """
     if kernel_size % 2 == 0 or kernel_size < 1:
@@ -63,7 +63,7 @@ def wiener(x: jax.Array, mysize: int = 3, noise: float | None = None) -> jax.Arr
     """Adaptive local-statistics Wiener filter (scipy.signal.wiener, 1-D).
 
     Local mean and variance come from two centered box correlations (the
-    lane-blocked MXU conv); where the local variance falls below the noise
+    lane-blocked conv); where the local variance falls below the noise
     floor the output collapses to the local mean. ``noise=None`` estimates
     the floor as the mean local variance, like scipy.
     """

@@ -1,8 +1,8 @@
 """Polyphase resampling: decimate / interpolate / rational resample.
 
-North-star stage (BASELINE.json: "polyphase decimate"). TPU-first shape: the
+North-star stage (BASELINE.json: "polyphase decimate"). Shape: the
 polyphase decomposition is a reshape — phase p of the signal is column p of
-the (time/q, q) view — so each phase convolution is a batched MXU conv and
+the (time/q, q) view — so each phase convolution is a batched conv and
 no strided gathers survive to runtime.
 
 Conventions match ops/fir.py: planar ``(channels, time)`` float32, causal.
@@ -21,14 +21,14 @@ from .fir import _as_planar, design_lowpass
 
 @functools.partial(jax.jit, static_argnames=("factor",))
 def _poly_decimate(x: jax.Array, taps: jax.Array, factor: int) -> jax.Array:
-    """y[m] = sum_j h[j] x[m*q - j] — one lane-blocked decimating MXU conv.
+    """y[m] = sum_j h[j] x[m*q - j] — one lane-blocked decimating conv.
 
     The polyphase sum IS a strided conv; lane-blocking it (fir.py's
     blocked_causal_conv with ``stride=q``: output frames of 128 lanes,
-    input frames of q*128) keeps the MXU's output-feature dim full. The
-    per-phase decomposition this replaced issued q strided slices of the
-    full stream (q-fold HBM traffic, measured 8x slower at q=8 on v5e), and
-    a plain single-feature strided conv runs at ~1/128 MXU utilization.
+    input frames of q*128) keeps the conv's output-feature dim full. A
+    per-phase decomposition would issue q strided slices of the full
+    stream (q-fold memory traffic), and a plain single-feature strided
+    conv has an output-feature dim of 1.
     """
     from .fir import blocked_causal_conv
 
@@ -47,7 +47,7 @@ def decimate(
 
     ``ftype='fir'`` (default): polyphase FIR — windowed-sinc lowpass at
     0.8/factor Nyquist with ``taps_per_phase * factor`` taps, one
-    lane-blocked MXU conv. ``ftype='iir'``: scipy.signal.decimate-style
+    lane-blocked conv. ``ftype='iir'``: scipy.signal.decimate-style
     zero-phase Chebyshev-I cascade (ops/iir.decimate_iir) for chains ported
     from scipy; ``taps``/``taps_per_phase`` are FIR-only.
     """
@@ -73,13 +73,13 @@ def decimate(
 
 @functools.partial(jax.jit, static_argnames=("factor",))
 def _poly_interpolate(x: jax.Array, taps: jax.Array, factor: int) -> jax.Array:
-    """Zero-stuff by `factor` then lowpass — one lane-blocked MXU conv.
+    """Zero-stuff by `factor` then lowpass — one lane-blocked conv.
 
     fir.py's blocked_interp_conv folds the zero-stuffing into the banded
     tap matrix (output frames q*128 lanes from input frames of 128), keeping
-    the MXU dense; an lhs-dilated single-feature conv runs at ~1/128
-    utilization, and the per-phase conv + interleave it originally replaced
-    paid a q-fold stack/reshape round-trip.
+    the conv dense; an lhs-dilated single-feature conv has one output
+    feature, and a per-phase conv + interleave pays a q-fold
+    stack/reshape round-trip.
     """
     from .fir import blocked_interp_conv
 
@@ -179,9 +179,9 @@ def upfirdn(
     """Zero-stuff by ``up``, FIR filter by ``h``, keep every ``down``-th
     sample (scipy.signal.upfirdn semantics + output length).
 
-    TPU spelling: the zero-stuffing rides :func:`ops.fir.blocked_interp_conv`'s
-    banded tap matrix (dense MXU frames; an lhs-dilated conv would run at
-    ~1/128 utilization), and the decimation is a strided slice of the full
+    Spelling: the zero-stuffing rides :func:`ops.fir.blocked_interp_conv`'s
+    banded tap matrix (dense frames; an lhs-dilated conv would have one
+    output feature), and the decimation is a strided slice of the full
     conv — XLA folds it into the output gather.
     """
     if up < 1 or down < 1:

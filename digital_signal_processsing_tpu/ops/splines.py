@@ -2,13 +2,13 @@
 
 Unser's recursive B-spline interpolation/smoothing filters with
 mirror-symmetric boundaries (B-Spline Signal Processing, IEEE TSP 1993,
-parts I-II). TPU-first structure: the boundary initial conditions are
+parts I-II). Structure: the boundary initial conditions are
 O(K) dot products computed in float64 on host (they are truncated
 infinite sums — design-time work), while the forward/backward recursions
 run through the package's seeded SOS device path
-(``ops.iir.sosfilt_chunk`` — XLA associative scan or the Pallas block
-scan at production lengths), so spline-filtering a million-sample batch
-rides the same kernels as every other IIR in the framework.
+(``ops.iir.sosfilt_chunk`` — the XLA associative scan), so
+spline-filtering a million-sample batch rides the same scan as every other
+IIR in the framework.
 
 Parity oracle: scipy.signal. Two scipy quirks are reproduced exactly:
 ``symiirorder1``'s initial condition uses the HALF-SAMPLE mirror

@@ -5,8 +5,7 @@ explicit window/hop/fs bookkeeping, signal-edge covering slices, exact
 inversion through the canonical dual window, and the four fft modes. The
 transform itself rides the same engines as :func:`ops.fft.stft` — the
 framing is the gather-free shifted-view decomposition and the DFT goes
-through ``jnp.fft`` (or the MXU engine for 128-grid ``mfft`` on TPU via
-``ops.fft``'s dispatch); slices are batched so the whole spectrogram is
+through ``jnp.fft`` (or the matmul engine with ``method='mxu'``); slices are batched so the whole spectrogram is
 one device call.
 
 Conventions verified against scipy empirically (pinned in

@@ -20,6 +20,7 @@ import jax.numpy as jnp
 
 from ..utils.numerics import MAX_EXACT_WINDOW, trunc_div
 from ..utils import layout
+from ..utils.dispatch import record_choice
 
 
 @jax.tree_util.register_dataclass
@@ -46,29 +47,19 @@ def moving_average_chunk(
 ) -> tuple[MovingAverageState, jax.Array]:
     """One chunk of the causal moving average (any whole-frame chunk length).
 
-    Bit-exact with the one-shot op on the concatenated stream. Lane-aligned
-    chunks (len % 128 == 0, channels | 128) run the seeded carry-free
-    windowed kernel; other shapes use the XLA sliding recurrence.
+    Bit-exact with the one-shot op on the concatenated stream. Where the
+    backend has the windowed GPU kernel it runs seeded with the carried
+    halo; otherwise the XLA sliding recurrence below.
     """
     halo = window * channels
     n = x.shape[0]
 
-    from .pallas_scan import (
-        windowed_averager_pallas,
-        windowed_supported,
-        windowed_tail_rows,
-    )
+    from .moving_average import auto_method
+    from .pallas_windowed import windowed_average_pallas
 
-    if windowed_supported(window, channels) and n > 0 and n % layout.LANES == 0:
-        tr = windowed_tail_rows(window, channels) * layout.LANES
-        # Seed rows older than the halo are zero-padded: the windowed
-        # identity w = p - p' + sum(rowtot) cancels any contribution from
-        # positions more than window*channels back, so their value is
-        # irrelevant (exact in int32 modular arithmetic).
-        seed = jnp.concatenate(
-            [jnp.zeros((tr - halo,), jnp.int16), state.tail]
-        )
-        out = windowed_averager_pallas(x, window, channels, seed=seed)
+    if n > 0 and auto_method(window, channels) == "windowed":
+        record_choice("moving_average_chunk", "windowed")
+        out = windowed_average_pallas(x, window, channels, seed=state.tail)
         new_tail = (
             x[n - halo :]
             if n >= halo
@@ -76,6 +67,7 @@ def moving_average_chunk(
         )
         return MovingAverageState(tail=new_tail), out
 
+    record_choice("moving_average_chunk", "xla_scan")
     ext = jnp.concatenate([state.tail, x])
     # sliding recurrence: window sums are the per-channel cumsum of the
     # difference signal d[i] = x[i] - x[i-halo], plus the carry-in sums

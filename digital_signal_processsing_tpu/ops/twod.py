@@ -1,12 +1,12 @@
-"""2-D filtering (scipy.signal's image-shaped surface), TPU-first.
+"""2-D filtering (scipy.signal's image-shaped surface).
 
 ``convolve2d``/``correlate2d`` ride ``lax.conv_general_dilated`` — XLA
-lowers 2-D convolutions straight onto the MXU (unlike the pathological
-single-feature 1-D case, BENCH_NOTES r2), so no hand kernel is needed;
+lowers 2-D convolutions straight to its conv libraries, so no hand
+kernel is needed;
 boundary handling is explicit padding before a VALID conv, which keeps
 every shape static under jit. ``medfilt2d`` stacks the k*k shifted views
 and sorts along the stack (zero gathers, like the 1-D rank family);
-``sepfir2d`` is two batched 1-D MXU passes. No reference analog (the CUDA
+``sepfir2d`` is two batched 1-D conv passes. No reference analog (the CUDA
 study is 1-D audio); parity target is scipy.signal.
 """
 
@@ -131,11 +131,11 @@ def sepfir2d(x: jax.Array, hrow: jax.Array, hcol: jax.Array) -> jax.Array:
     """Separable 2-D FIR with mirror-symmetric boundaries
     (scipy.signal.sepfir2d: odd-length filters, output the input's shape).
 
-    Two 1-D correlations — along rows then columns — each a batched MXU
+    Two 1-D correlations — along rows then columns — each a batched
     conv; the separable split turns a (kh*kw) kernel into kh+kw MACs/pixel.
     """
     xf = jnp.asarray(x, jnp.float32)
-    # scipy convolves (kernel flipped); the MXU pass below correlates
+    # scipy convolves (kernel flipped); the conv pass below correlates
     hr = jnp.asarray(hrow, jnp.float32).reshape(-1)[::-1]
     hc = jnp.asarray(hcol, jnp.float32).reshape(-1)[::-1]
     if hr.size % 2 == 0 or hc.size % 2 == 0:

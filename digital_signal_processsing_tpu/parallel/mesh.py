@@ -6,7 +6,7 @@ checklist: single-GPU only). Axis conventions:
 - ``"t"`` — time/sequence axis: contiguous time-blocks of the sample stream,
   the cross-chip generalization of the reference's intra-GPU multi-block
   scan decomposition (hillis_steele_averager.cu:69-84). Scan carries and
-  FIR halos ride this axis via collectives over ICI.
+  FIR halos ride this axis via collectives (NCCL over NVLink on GPUs).
 - ``"ch"`` — channel/stream axis: embarrassingly parallel streams (the DP
   analog; BASELINE.json's 16-channel chain shards here).
 """
@@ -35,17 +35,6 @@ def make_mesh(
     return Mesh(
         devices.reshape(n_channel, n_time), (CHANNEL_AXIS, TIME_AXIS)
     )
-
-
-def make_time_mesh(devices=None) -> Mesh:
-    """1-D mesh with ONLY the time axis named.
-
-    Pallas remote DMA (dma_start) currently supports single-named-axis
-    meshes only; the ring kernels (ring_pallas.py) need this shape. The
-    2-D (ch, t) mesh from make_mesh works everywhere else.
-    """
-    devices = np.asarray(devices if devices is not None else jax.devices())
-    return Mesh(devices, (TIME_AXIS,))
 
 
 def time_sharding(mesh: Mesh) -> NamedSharding:

@@ -25,8 +25,8 @@ def initialize_multihost(
 ) -> dict:
     """Initialize the distributed runtime; returns a topology summary.
 
-    With no arguments, defers to the environment (TPU pod runtimes
-    auto-populate); arguments override for manual bring-up.
+    With no arguments, defers to the environment (cluster runtimes
+    that populate it); arguments override for manual bring-up.
     """
     jax.distributed.initialize(
         coordinator_address=coordinator_address,

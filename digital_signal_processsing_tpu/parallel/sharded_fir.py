@@ -4,7 +4,7 @@ The distributed generalization of overlap-save: each device filters its
 contiguous time block after receiving the last ``k-1`` samples of its left
 neighbor via one ``ppermute`` (device 0 receives zeros — causal startup).
 The chunk boundary math is identical to ops/fir.py's block decomposition,
-lifted one level from VMEM tiles to mesh shards; channels shard over the
+lifted one level from blocks to mesh shards; channels shard over the
 ``ch`` axis untouched (embarrassingly parallel).
 """
 
@@ -37,9 +37,8 @@ def _shard_body(xs: jax.Array, taps: jax.Array, *, method: str) -> jax.Array:
     if method == "direct":
         y = fir_direct(ext, taps)
     elif method == "auto":
-        # the measured single-chip ladder (direct below the crossover, the
-        # MXU overlap-save engines above it); taps concrete here when the
-        # cached static-taps build was used, so the FUSED kernel is in play
+        # the single-device ladder (direct below the crossover,
+        # overlap-save above it)
         y = fir_filter(ext, taps, method="auto")
     else:
         y = fir_overlap_save(ext, taps)
@@ -87,11 +86,9 @@ def sharded_fir_filter(
 
     Requires taps length - 1 <= one time shard (single-hop halo).
 
-    ``method='auto'`` (default, round 3) runs each shard through the
-    single-chip :func:`fir_filter` ladder — direct below the measured
-    crossover, the fused MXU overlap-save above it (concrete taps stay
-    static via a cached closure, so the fused kernel actually fires);
-    'direct'/'overlap_save' keep the round-2 spellings as A/B anchors.
+    ``method='auto'`` (default) runs each shard through the single-device
+    :func:`fir_filter` ladder — direct below the crossover, overlap-save
+    above it; 'direct'/'overlap_save' pin one spelling.
     """
     k = int(taps.shape[0])
     t = x.shape[-1]

@@ -1,4 +1,4 @@
-"""Time-block-sharded scan averager: the reference's carry tree over ICI.
+"""Time-block-sharded scan averager: the reference's carry tree across devices.
 
 The reference splits the sequence across thread blocks and propagates
 carries through a recursive aux-scan + uniform_add relaunch tree
@@ -18,16 +18,15 @@ chips the same decomposition needs exactly ONE collective round:
      reference's zeroed halo, gpu_utils.h:112-114, falling out of collective
      semantics).
 
-All collectives ride the mesh's time axis (ICI on hardware); payloads are
+All collectives ride the mesh's time axis (NVLink between GPUs); payloads are
 C + k*C int32 words per device — independent of the stream length.
 
 That three-step decomposition is kept as ``method='scan'`` (the reference's
 carry-tree analog). The default ``method='windowed'`` goes further: the
-carry-free windowed kernel needs no global cumsum at all, so the only
-communication is ONE right-shift ``ppermute`` of each shard's trailing raw
-int16 samples (the seed for the neighbor's tail scratch) — measured 2.6x
-faster than the carry path on v5e and within ~10% of the single-chip kernel
-on a degenerate 1-device mesh.
+windowed averager needs no global cumsum at all, so the only communication
+is ONE right-shift ``ppermute`` of each shard's trailing ``k*C`` raw int16
+samples, the seed of the neighbour's local averager. Under ``shard_map``
+on GPUs the ``ppermute`` lowers to NCCL.
 """
 
 from __future__ import annotations
@@ -43,11 +42,7 @@ from ..utils import layout
 from .mesh import TIME_AXIS
 
 
-def _local_cumsum(xs: jax.Array, channels: int, use_pallas: bool) -> jax.Array:
-    if use_pallas:
-        from ..ops.pallas_scan import cumsum_pallas
-
-        return cumsum_pallas(xs, channels)
+def _local_cumsum(xs: jax.Array, channels: int) -> jax.Array:
     frames = xs.shape[0] // channels
     return jnp.cumsum(
         xs.reshape(frames, channels).astype(jnp.int32), axis=0
@@ -65,10 +60,8 @@ def _carry_exclusive(
     round shifts partial sums right by doubling strides (missing sources
     deliver ppermute's zeros), giving the INCLUSIVE prefix in ceil(log2 D)
     dependent collective steps; subtracting the local total makes it
-    exclusive (int32 modular arithmetic — exact). The round-4 comm model
-    showed the (D-1)-step ``all_gather`` spelling collapsing to 0.07-0.55
-    predicted efficiency at 256 chips on latency alone; the ladder's
-    critical path is log-depth (WEAKSCALING_MODEL.json scan_carry rows).
+    exclusive (int32 modular arithmetic — exact). Its critical path is
+    log-depth in the device count.
 
     ``impl='allgather'``: the r2-r4 one-round spelling, kept as the
     parity anchor.
@@ -100,13 +93,11 @@ def _shard_body(
     window: int,
     channels: int,
     axis: str,
-    use_pallas: bool,
-    halo_impl: str = "ppermute",
     carry_impl: str = "ladder",
 ) -> jax.Array:
     n_loc = xs.shape[0]
     halo = window * channels
-    cum = _local_cumsum(xs, channels, use_pallas)
+    cum = _local_cumsum(xs, channels)
 
     # cross-chip uniform_add: exclusive prefix of per-device channel totals
     totals = cum[n_loc - channels :]  # (C,) last frame's per-channel cumsum
@@ -116,14 +107,9 @@ def _shard_body(
 
     # halo exchange: last `halo` cumsum values -> right neighbor
     tail = cum[n_loc - halo :]
-    if halo_impl == "pallas_ring":
-        from .ring_pallas import ring_shift_right_shard
-
-        left_tail = ring_shift_right_shard(tail.reshape(1, -1), axis).reshape(-1)
-    else:
-        left_tail = jax.lax.ppermute(
-            tail, axis, perm=[(d, d + 1) for d in range(ndev - 1)]
-        )  # device 0 gets zeros: the causal zero halo
+    left_tail = jax.lax.ppermute(
+        tail, axis, perm=[(d, d + 1) for d in range(ndev - 1)]
+    )  # device 0 gets zeros: the causal zero halo
     ext = jnp.concatenate([left_tail, cum])  # (halo + n_loc,)
     shifted = ext[:n_loc]  # shifted[i] = cum_global[i - halo]
     wsum = cum - shifted
@@ -133,55 +119,30 @@ def _shard_body(
 def _shard_body_windowed(
     xs: jax.Array, *, window: int, channels: int, axis: str
 ) -> jax.Array:
-    """Carry-free sharded averager: ONE tiny raw-sample halo ppermute.
+    """Carry-free sharded averager: ONE raw-sample halo ppermute.
 
-    The windowed kernel (ops/pallas_scan.py) never needs a global cumsum —
-    each shard only needs the ``windowed_tail_rows*128`` raw samples that
-    precede it. So the reference's whole cross-block carry machinery
-    (aux-scan + uniform_add, hillis_steele_averager.cu:69-84) reduces to a
-    single right-shift ppermute of int16 raw samples; device 0 receives
-    ppermute's zeros = the causal zero halo (gpu_utils.h:112-114). No
-    all-gather, no int32 cumsum round-trip through HBM.
+    The windowed averager never needs a global cumsum: each shard only
+    needs the ``window * channels`` raw samples that precede it. So the
+    reference's whole cross-block carry machinery (aux-scan + uniform_add,
+    hillis_steele_averager.cu:69-84) reduces to a single right-shift
+    ppermute of int16 samples; device 0 receives ppermute's zeros = the
+    causal zero halo (gpu_utils.h:112-114). The shard then runs the
+    streaming chunk op seeded with that halo, which takes the windowed GPU
+    kernel where the backend has it.
     """
-    from ..ops.pallas_scan import windowed_averager_pallas, windowed_tail_rows
+    from ..ops.streaming import MovingAverageState, moving_average_chunk
 
-    h = windowed_tail_rows(window, channels) * layout.LANES
+    h = window * channels
     ndev = jax.lax.axis_size(axis)
     tail = xs[xs.shape[0] - h :]
     left = jax.lax.ppermute(tail, axis, perm=[(d, d + 1) for d in range(ndev - 1)])
-    return windowed_averager_pallas(xs, window, channels, seed=left)
-
-
-def _shard_body_windowed_packed(
-    xs32: jax.Array, *, window: int, channels: int, axis: str
-) -> jax.Array:
-    """Packed-transport variant: the halo ppermute moves int32 PAIR words.
-
-    Same single-collective structure as _shard_body_windowed, but the shard
-    is the int32 little-endian pair view (io/dataset.py packed loaders) and
-    both the halo exchange and the kernel stay in the int32 tile layout —
-    no pack/unpack relayout anywhere on the device path.
-    """
-    from ..ops.pallas_scan import packed_tail_rows, windowed_averager_packed
-
-    h32 = packed_tail_rows(window, channels) * layout.LANES
-    ndev = jax.lax.axis_size(axis)
-    tail = xs32[xs32.shape[0] - h32 :]
-    left = jax.lax.ppermute(tail, axis, perm=[(d, d + 1) for d in range(ndev - 1)])
-    return windowed_averager_packed(xs32, window, channels, seed=left)
+    _, out = moving_average_chunk(MovingAverageState(tail=left), xs, window, channels)
+    return out
 
 
 @functools.partial(
     jax.jit,
-    static_argnames=(
-        "window",
-        "channels",
-        "mesh",
-        "use_pallas",
-        "halo_impl",
-        "method",
-        "carry_impl",
-    ),
+    static_argnames=("window", "channels", "mesh", "method", "carry_impl"),
 )
 def sharded_moving_average(
     x: jax.Array,
@@ -189,8 +150,6 @@ def sharded_moving_average(
     channels: int = 1,
     *,
     mesh: Mesh,
-    use_pallas: bool = True,
-    halo_impl: str = "ppermute",
     method: str = "windowed",
     carry_impl: str = "ladder",
 ) -> jax.Array:
@@ -200,25 +159,25 @@ def sharded_moving_average(
     frames, and ``window*channels`` must fit in one shard (single-hop halo).
     Bit-exact against the golden model for window <= 65535.
 
-    ``method='windowed'`` (default) runs the carry-free kernel with a raw
-    int16 halo exchange; it falls back to ``'scan'`` when the config is
-    outside the kernel's envelope (channels, halo VMEM budget, shard
-    alignment) or when ``use_pallas=False`` requests the pure-XLA path.
-    ``method='scan'`` keeps the explicit cumsum + all-gather carry +
-    cumsum-tail halo decomposition (the reference's carry-tree analog),
-    honoring ``use_pallas``/``halo_impl``.
+    ``method='windowed'`` (default) exchanges a raw int16 halo and runs the
+    seeded local averager. ``method='scan'`` keeps the explicit cumsum +
+    carry + cumsum-tail halo decomposition (the reference's carry-tree
+    analog).
 
     An int32 ``x`` is the packed little-endian pair view of the int16
-    stream (io/dataset.py packed loaders, ops/moving_average.py docstring):
-    the windowed path then exchanges packed-word halos and runs the packed
-    kernel end-to-end in the int32 tile layout.
+    stream (io/dataset.py packed loaders); it is unpacked on the device and
+    the output returned in the same view.
     """
     layout.validate_window(window, MAX_EXACT_WINDOW)
+    if method not in ("windowed", "scan"):
+        raise ValueError(f"unknown method {method!r}; options: windowed, scan")
     ndev = mesh.shape[TIME_AXIS]
     if x.dtype == jnp.int32:
-        return _sharded_moving_average_packed(
-            x, window, channels, mesh=mesh, method=method
+        x16 = jax.lax.bitcast_convert_type(x, jnp.int16).reshape(-1)
+        y16 = sharded_moving_average(
+            x16, window, channels, mesh=mesh, method=method, carry_impl=carry_impl
         )
+        return jax.lax.bitcast_convert_type(y16.reshape(-1, 2), jnp.int32)
     n = x.shape[0]
     if n % (ndev * channels) != 0:
         raise ValueError(
@@ -230,128 +189,41 @@ def sharded_moving_average(
             f"window*channels = {window * channels} exceeds one shard "
             f"({n // ndev}); halo exchange is single-hop"
         )
-    if method == "windowed" and not use_pallas:
-        method = "scan"  # honor the explicit pure-XLA opt-out
     if method == "windowed":
-        from ..ops.pallas_scan import windowed_supported, windowed_tail_rows
-
-        n_loc = n // ndev
-        if (
-            windowed_supported(window, channels)
-            and n_loc % layout.LANES == 0
-            and n_loc >= windowed_tail_rows(window, channels) * layout.LANES
-        ):
-            if halo_impl == "fused_ring":
-                # in-kernel halo RDMA overlapped with interior tiles
-                # (ring_pallas.fused_ring_windowed_shard); needs the 1-named-
-                # axis mesh (make_time_mesh) — Pallas dma_start restriction
-                from .ring_pallas import fused_ring_windowed_shard
-
-                body = functools.partial(
-                    fused_ring_windowed_shard,
-                    window=window,
-                    channels=channels,
-                    axis=TIME_AXIS,
-                )
-            else:
-                body = functools.partial(
-                    _shard_body_windowed,
-                    window=window,
-                    channels=channels,
-                    axis=TIME_AXIS,
-                )
-            fn = jax.shard_map(
-                body,
-                mesh=mesh,
-                in_specs=P(TIME_AXIS),
-                out_specs=P(TIME_AXIS),
-                check_vma=False,
-            )
-            return fn(x)
-        method = "scan"  # fall back to the carry decomposition
-    if method != "scan":
-        raise ValueError(f"unknown method {method!r}; options: windowed, scan")
-    spec = P(TIME_AXIS)
-    fn = jax.shard_map(
-        functools.partial(
+        body = functools.partial(
+            _shard_body_windowed, window=window, channels=channels, axis=TIME_AXIS
+        )
+    else:
+        body = functools.partial(
             _shard_body,
             window=window,
             channels=channels,
             axis=TIME_AXIS,
-            use_pallas=use_pallas,
-            halo_impl=halo_impl,
             carry_impl=carry_impl,
-        ),
+        )
+    spec = P(TIME_AXIS)
+    return jax.shard_map(
+        body,
         mesh=mesh,
         in_specs=spec,
         out_specs=spec,
         check_vma=False,  # pallas_call outputs carry no vma annotation
-    )
-    return fn(x)
+    )(x)
 
 
-def _sharded_moving_average_packed(
-    x32: jax.Array, window: int, channels: int, *, mesh: Mesh, method: str
-) -> jax.Array:
-    """Packed pair-view entry for the sharded averager (windowed only)."""
-    from ..ops.pallas_scan import packed_supported, packed_tail_rows
-
-    if method != "windowed":
-        raise ValueError(
-            f"packed (int32 pair-view) input supports method='windowed', "
-            f"got {method!r}"
-        )
-    ndev = mesh.shape[TIME_AXIS]
-    n32 = x32.shape[0]
-    if (2 * n32) % (ndev * channels) != 0:
-        raise ValueError(
-            f"packed stream of {n32} pairs must divide into {ndev} shards "
-            f"of whole frames of {channels} channels"
-        )
-    n_loc = n32 // ndev
-    h32 = packed_tail_rows(window, channels) * layout.LANES
-    if not (
-        packed_supported(window, channels)
-        and n32 % ndev == 0
-        and n_loc % layout.LANES == 0
-        and n_loc >= h32
-    ):
-        raise ValueError(
-            f"packed sharded path needs packed_supported(window={window}, "
-            f"channels={channels}), lane-aligned shards and a single-hop "
-            f"halo (shard {n_loc} pairs >= halo {h32}); unpack and use the "
-            "int16 path instead"
-        )
-    return jax.shard_map(
-        functools.partial(
-            _shard_body_windowed_packed,
-            window=window,
-            channels=channels,
-            axis=TIME_AXIS,
-        ),
-        mesh=mesh,
-        in_specs=P(TIME_AXIS),
-        out_specs=P(TIME_AXIS),
-        check_vma=False,
-    )(x32)
-
-
-@functools.partial(
-    jax.jit, static_argnames=("channels", "mesh", "use_pallas", "carry_impl")
-)
+@functools.partial(jax.jit, static_argnames=("channels", "mesh", "carry_impl"))
 def sharded_cumsum(
     x: jax.Array,
     channels: int = 1,
     *,
     mesh: Mesh,
-    use_pallas: bool = True,
     carry_impl: str = "ladder",
 ) -> jax.Array:
     """Per-channel int32 modular cumsum of a time-block-sharded stream."""
 
     def body(xs):
         n_loc = xs.shape[0]
-        cum = _local_cumsum(xs, channels, use_pallas)
+        cum = _local_cumsum(xs, channels)
         totals = cum[n_loc - channels :]
         carry = _carry_exclusive(totals, TIME_AXIS, carry_impl)
         return (cum.reshape(-1, channels) + carry[None, :]).reshape(-1)

@@ -5,7 +5,7 @@ coefficient schedules, per-stream LPC frames), so the sharded spelling is
 a pure ``shard_map`` over the ``ch`` mesh axis with NO collectives — the
 value is the wiring: coefficients shard (or replicate) consistently with
 the signal, and the result is bit-equal to the unsharded op because each
-device runs the identical kernel on its slice.
+device runs the identical computation on its slice.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ from jax.sharding import PartitionSpec as P
 from .mesh import CHANNEL_AXIS
 
 
-def sharded_sosfilt_tv(sos_t, x, *, mesh, tile_rows: int = 256):
+def sharded_sosfilt_tv(sos_t, x, *, mesh):
     """:func:`ops.iir.sosfilt_tv` with channels sharded over ``ch``.
 
     ``x``: (C, T); ``sos_t``: (S, T, 6) (replicated — shared schedule) or
@@ -34,11 +34,11 @@ def sharded_sosfilt_tv(sos_t, x, *, mesh, tile_rows: int = 256):
         raise ValueError("sos_t must be (S, T, 6) or (S, C, T, 6)")
 
     fn = jax.shard_map(
-        lambda s, v: iir.sosfilt_tv(s, v, tile_rows=tile_rows),
+        iir.sosfilt_tv,
         mesh=mesh,
         in_specs=(sos_spec, P(CHANNEL_AXIS, None)),
         out_specs=P(CHANNEL_AXIS, None),
-        check_vma=False,  # pallas_call outputs carry no vma annotation
+        check_vma=False,
     )
     return fn(sos_t, x)
 

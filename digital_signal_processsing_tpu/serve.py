@@ -2,7 +2,7 @@
 
 The production deployment loop the reference's one-WAV-per-binary design
 implies but never builds: decode (native C++ fast path when built) ->
-stateful chunked compute on the TPU -> streaming WAV sink, all with
+stateful chunked compute on the device -> streaming WAV sink, all with
 bounded memory. JAX's async dispatch overlaps the host decode of chunk
 i+1 with the device compute of chunk i for free — the host only blocks
 when it fetches an already-finished result.
@@ -17,6 +17,7 @@ import numpy as np
 
 from .io.dataset import WavChunkLoader
 from .io.wav import WavWriter, read_wav_info
+from .utils.cache import enable_persistent_cache
 
 
 def run_chunks(
@@ -55,6 +56,7 @@ def stream_moving_average(
     compute). ``None`` auto-selects it when the library is built; the
     output is byte-identical either way.
     """
+    enable_persistent_cache()
     from .ops.streaming import moving_average_chunk, moving_average_init
 
     paths = list(paths)
@@ -141,6 +143,7 @@ def stream_sosfilt(
     the result matches the one-shot ``sosfilt`` of the concatenated
     stream to float32 tolerance.
     """
+    enable_persistent_cache()
     import jax.numpy as jnp
 
     from .ops import iir as _iir
@@ -202,6 +205,7 @@ def stream_time_stretch(
     channel (any sub-hop remainder at stream end is zero-padded into the
     final hop, matching a zero-padded one-shot call).
     """
+    enable_persistent_cache()
     from .ops import phase_vocoder as _pv
 
     paths = list(paths)
@@ -279,6 +283,7 @@ def stream_mfcc(
     ``ops.mel.mfcc`` of the zero-primed concatenated stream (any sub-hop
     stream tail is zero-padded into the final hop).
     """
+    enable_persistent_cache()
     from .ops import mel as _mel
 
     paths = list(paths)

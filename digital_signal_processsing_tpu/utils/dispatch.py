@@ -2,14 +2,14 @@
 
 The public ops (moving_average, sosfilt, iir_first_order, fir_filter) hide
 a method ladder behind an ``auto`` policy whose fallbacks are bit-exact but
-differ in perf class by 3x+ (e.g. windowed -> scan when the tail exceeds
-the VMEM budget). A silent fallback in a user pipeline reads as a
+differ in perf class by 3x+ (e.g. the windowed GPU kernel -> the XLA scan
+for a channel count the kernel cannot tile). A silent fallback in a user pipeline reads as a
 regression with no diff to point at. This module gives the dispatchers one
 place to record their choice so users (and perf tests) can observe it:
 
 - ``last_choice(op)`` returns the most recent method an op dispatched to;
 - ``choices()`` snapshots the whole table;
-- set env ``DSP_TPU_LOG_DISPATCH=1`` to also print each choice to stderr
+- set env ``DSP_LOG_DISPATCH=1`` to also print each choice to stderr
   (only when it CHANGES for an op, so hot loops don't spam).
 
 Python-level and trace-time only: recording happens when the dispatcher
@@ -31,8 +31,8 @@ def record_choice(op: str, method: str) -> None:
     with _lock:
         changed = _choices.get(op) != method
         _choices[op] = method
-    if changed and os.environ.get("DSP_TPU_LOG_DISPATCH"):
-        print(f"[dsp-tpu dispatch] {op} -> {method}", file=sys.stderr)
+    if changed and os.environ.get("DSP_LOG_DISPATCH"):
+        print(f"[dsp dispatch] {op} -> {method}", file=sys.stderr)
 
 
 def last_choice(op: str) -> str | None:

@@ -1,32 +1,23 @@
-"""Layout / padding helpers — the DspWorkspace analog, TPU-first.
+"""Layout / padding helpers — the DspWorkspace analog.
 
 The reference's ``DspWorkspace`` (gpu_utils.h:67-160) solves three problems
 with device-side buffer arithmetic: a zeroed *halo prefix* so causal windows
 may read "before" sample 0, tail alignment to the vector-load width, and
-scan-scratch sizing for the recursive carry tree. On TPU all three collapse
+scan-scratch sizing for the recursive carry tree. Here all three collapse
 into shape arithmetic done once at trace time:
 
 - the halo prefix becomes a masked select (``where(i >= k*C, cum[i-k*C], 0)``)
   or an explicit zero-pad — no allocation tricks;
-- vector alignment becomes padding the flat stream to the Pallas tile size
-  (rows × 128 lanes), which also subsumes the int2/int4 alignment ladder
-  (gpu_utils.h:133-140);
-- scan scratch is a single VMEM carry register per grid pass — the recursive
-  aux-buffer sizing (gpu_utils.h:142-151) has no TPU analog.
+- vector alignment becomes masked loads of whole power-of-two tiles,
+  which also subsumes the int2/int4 alignment ladder (gpu_utils.h:133-140);
+- scan scratch is a carry held in registers — the recursive aux-buffer
+  sizing (gpu_utils.h:142-151) has no analog.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import jax.numpy as jnp
-
-# VPU lane width: the minor axis of every TPU vector register.
-LANES = 128
-# Default sublane rows per Pallas tile. Measured on v5e (64M-sample stream,
-# window 1024): 256 rows -> 16.5 GS/s, 512 -> 22.9, 1024 -> 25.1, 2048 ->
-# 23.9; 1024 rows x 128 lanes x 4B = 512 KiB per i32 buffer keeps the scan's
-# concat scratch + double-buffered I/O well inside 16 MiB VMEM.
-DEFAULT_TILE_ROWS = 1024
 
 
 def round_up(x: int, m: int) -> int:
@@ -36,27 +27,6 @@ def round_up(x: int, m: int) -> int:
 
 def cdiv(a: int, b: int) -> int:
     return -(-a // b)
-
-
-def pad_flat_to_tiles(x, tile_rows: int = DEFAULT_TILE_ROWS, lanes: int = LANES):
-    """Zero-pad a flat 1-D stream and reshape to (total_rows, lanes).
-
-    Row-major time order: element ``g`` of the flat stream lives at
-    ``(g // lanes, g % lanes)``. The zero tail mirrors the reference's zeroed
-    alignment tail (gpu_utils.h:116-121) and is sliced off by the caller.
-    Returns ``(x2d, n)`` where ``n`` is the original length.
-    """
-    n = x.shape[0]
-    tile = tile_rows * lanes
-    padded = round_up(max(n, 1), tile)
-    if padded != n:
-        x = jnp.pad(x, (0, padded - n))
-    return x.reshape(padded // lanes, lanes), n
-
-
-def unpad_flat(x2d, n: int):
-    """Inverse of :func:`pad_flat_to_tiles`: back to a length-``n`` flat stream."""
-    return x2d.reshape(-1)[:n]
 
 
 def interleaved_frames(num_samples: int, channels: int) -> int:
@@ -85,8 +55,7 @@ def overlapping_frames(x, num_frames: int, hop: int, frame_len: int):
     """Overlapping frames of the last axis WITHOUT a gather.
 
     frame i = x[..., i*hop : i*hop + frame_len]. A direct index-matrix
-    gather lowers catastrophically on TPU (measured 3.9 MS/s for the
-    receiver chain); instead build ceil(frame_len/hop) shifted contiguous
+    gather is slow on some backends; instead build ceil(frame_len/hop) shifted contiguous
     views, each a pure reshape, and concatenate:
 
         part_j[..., i, :] = x[..., (i+j)*hop : (i+j+1)*hop]

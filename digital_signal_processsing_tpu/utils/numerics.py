@@ -11,9 +11,9 @@ The reference's numerics dossier (SURVEY.md §5):
   (profilable_moving_averager.cpp:23) or float ``sum * (1/grade)`` with a
   truncating cast on the GPU variants (profilable_sm_averager.cu:43).
 
-TPU-native replacement for the int64 cumsum
--------------------------------------------
-TPUs have no native int64; emulation would halve throughput. We instead run
+int32 replacement for the int64 cumsum
+-------------------------------------
+int64 arithmetic doubles the bytes every scan moves. We instead run
 the prefix sum in **int32 modular (two's-complement wraparound) arithmetic**:
 
     window_sum[i] = (cumsum[i] - cumsum[i - k*C]) mod 2^32

@@ -1,6 +1,6 @@
 """Time-stretch and pitch-shift a WAV through the phase vocoder.
 
-Runs on CPU or TPU:  python examples/audio_timestretch.py [in.wav]
+Runs on CPU or GPU:  python examples/audio_timestretch.py [in.wav]
 
 Without an argument it synthesizes a two-tone test signal, writes it to a
 temp WAV, then produces three outputs via the framework's WAV codec and

@@ -5,7 +5,7 @@ placement computes the gain, the continuous loop is validated with
 lsim/step, then the controller is DISCRETIZED and re-validated as the
 digital loop a DSP deployment would ship.
 
-Runs on CPU or TPU:  python examples/control_design.py
+Runs on CPU or GPU:  python examples/control_design.py
 """
 
 import sys

@@ -4,7 +4,7 @@ The 2x-oversampled PFB's reconstruction error is an ordinary differentiable
 JAX function of its prototype filter, so optax optimizes the filter through
 the bank itself — no filter-bank theory required at the call site.
 
-Runs on CPU or TPU:  python examples/design_filterbank.py
+Runs on CPU or GPU:  python examples/design_filterbank.py
 """
 
 import sys

@@ -1,11 +1,11 @@
 """Direction finding on a ULA: Bartlett vs MVDR vs MUSIC side by side.
 
-Runs on CPU or TPU:  python examples/doa_scanner.py
+Runs on CPU or GPU:  python examples/doa_scanner.py
 
 Synthesizes snapshots from an 8-element half-wavelength array with three
 sources (two of them only 8 degrees apart — inside the conventional
 beamwidth), runs all three spatial spectra through models.beamform (one
-MXU covariance matmul + real-embedded Cholesky/eigh subspace math) and
+covariance matmul + real-embedded Cholesky/eigh subspace math) and
 prints each method's bearing estimates, then repeats with two fully
 COHERENT sources to show forward-backward averaging restoring MUSIC.
 """

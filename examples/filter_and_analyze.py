@@ -1,6 +1,6 @@
 """Design filters, run them, and inspect the spectrum — the basic toolbox.
 
-Runs on CPU or TPU:  python examples/filter_and_analyze.py
+Runs on CPU or GPU:  python examples/filter_and_analyze.py
 """
 
 import sys

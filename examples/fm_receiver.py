@@ -1,6 +1,6 @@
 """Demodulate a synthetic multi-channel FM capture with the flagship chain.
 
-Runs on CPU or TPU:  python examples/fm_receiver.py
+Runs on CPU or GPU:  python examples/fm_receiver.py
 """
 
 import sys

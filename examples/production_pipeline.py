@@ -2,13 +2,13 @@
 
 Demonstrates the production-scale paths added in round 2:
 - true-minimax FIR design (design_remez) driving the auto-crossover filter
-- IIR cascade auto-dispatch (the Pallas block scan at production sizes)
+- IIR cascade at production length (the XLA associative scan)
 - arbitrary-rate Farrow resampling (44.1 kHz from a 48 kHz stream)
 - blocked Hilbert envelope
 - dispatch observability (which kernel did `auto` pick?)
 
-Runs on CPU (interpret-mode kernels) in ~a minute; sizes are trimmed for
-the smoke test — scale T up on real hardware.
+Runs on CPU in ~a minute; sizes are trimmed for the smoke test — scale T
+up on real hardware.
 """
 
 import numpy as np
@@ -23,7 +23,7 @@ from digital_signal_processsing_tpu.ops.farrow import (
 from digital_signal_processsing_tpu.ops.fft import envelope
 from digital_signal_processsing_tpu.utils.dispatch import choices
 
-T = 1 << 17  # trimmed for CPU smoke; 64M on chip
+T = 1 << 17  # trimmed for the CPU smoke test
 rng = np.random.default_rng(0)
 t = np.arange(T)
 x = (
@@ -41,11 +41,11 @@ ok = hf_out < 0.3 * hf_in  # the passband tone keeps its own (small) slope
 print(f"remez lowpass: HF {hf_in:.4f} -> {hf_out:.4f} "
       f"({'PASS' if ok else 'MISS'})")
 
-# 2. IIR cascade at production length: auto -> Pallas block scan
+# 2. IIR cascade at production length: auto -> XLA associative scan
 sos = iir.design_butterworth(4, 0.1)
 z = np.asarray(iir.sosfilt(sos, x))
 print(f"sosfilt dispatched: {choices().get('sosfilt')} "
-      f"({'PASS' if choices().get('sosfilt') in ('pallas', 'pallas_fused') else 'MISS'})")
+      f"({'PASS' if choices().get('sosfilt') == 'xla_scan' else 'MISS'})")
 
 # 3. lock the stream to 44.1 kHz from 48 kHz (non-integer ratio)
 rate = (147, 160)

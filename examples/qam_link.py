@@ -1,6 +1,6 @@
 """Single-carrier QAM link: transmit a burst, impair it, recover the bits.
 
-Runs on CPU or TPU:  python examples/qam_link.py
+Runs on CPU or GPU:  python examples/qam_link.py
 
 A 16-QAM burst goes through RRC pulse shaping, then a channel with delay,
 carrier offset, static multipath and noise; models.modem's fully batched

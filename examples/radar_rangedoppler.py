@@ -1,9 +1,9 @@
 """Pulse-Doppler radar: compress a CPI, map range-Doppler, CFAR-detect.
 
-Runs on CPU or TPU:  python examples/radar_rangedoppler.py
+Runs on CPU or GPU:  python examples/radar_rangedoppler.py
 
 Synthesizes a coherent processing interval with three moving targets in
-noise, runs the full models.radar chain (batched MXU matched filter →
+noise, runs the full models.radar chain (batched matched filter →
 slow-time Doppler FFT → exact-edge CA-CFAR) and prints where the detector
 fired versus the truth.
 """

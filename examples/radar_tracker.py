@@ -1,6 +1,6 @@
 """Pulse-Doppler radar with a multi-target tracker over the CPI stream.
 
-Runs on CPU or TPU:  python examples/radar_tracker.py
+Runs on CPU or GPU:  python examples/radar_tracker.py
 
 Synthesizes 12 coherent processing intervals with two targets whose ranges
 CROSS mid-stream, runs the detection chain per CPI (models.radar, vmapped

@@ -6,7 +6,7 @@ DIFFERENT pitch (the classic vocoder), and clean a frequency-wandering
 interferer with the block-adaptive tracking notch riding the
 time-varying SOS kernel.
 
-Runs on CPU or TPU:  python examples/speech_pipeline.py
+Runs on CPU or GPU:  python examples/speech_pipeline.py
 """
 
 import sys

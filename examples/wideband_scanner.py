@@ -1,6 +1,6 @@
 """Scan a wideband capture: PFB channelize, demodulate everything at once.
 
-Runs on CPU or TPU:  python examples/wideband_scanner.py
+Runs on CPU or GPU:  python examples/wideband_scanner.py
 On a multi-device mesh the same call scales with no code changes:
 feed a time-sharded input (see models/wideband.py docstring).
 """

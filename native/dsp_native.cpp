@@ -1,7 +1,7 @@
 // Native host runtime: WAV codec + serial CPU moving averager + bench CLI.
 //
 // The reference's native layer is C++/CUDA (wav_header.h, benchmark.h,
-// profilable_moving_averager.cpp). The TPU framework keeps the host-native
+// profilable_moving_averager.cpp). This framework keeps the host-native
 // pieces native: this file provides
 //   - a canonical 44-byte PCM WAV reader/writer (16-bit only, rejecting
 //     8/24/32/64-bit like wav_header.h:34-37),

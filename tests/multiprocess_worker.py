@@ -10,6 +10,7 @@ import os
 import sys
 
 pid, nproc, port = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+os.environ["JAX_PLATFORMS"] = "cpu"
 os.environ["XLA_FLAGS"] = (
     os.environ.get("XLA_FLAGS", "") + " --xla_force_host_platform_device_count=4"
 ).strip()
@@ -70,23 +71,14 @@ def main() -> None:
     for shard in out_sc.addressable_shards:
         np.testing.assert_array_equal(np.asarray(shard.data), want[shard.index])
 
-    # --- fused-ring windowed averager across processes (round 4): the
-    # in-kernel RDMA halo on a process-spanning 1-named-axis time mesh
-    from digital_signal_processsing_tpu.parallel.mesh import make_time_mesh
-
-    tmesh = make_time_mesh()
-    assert tmesh.devices.size == 4 * nproc
+    # --- windowed averager with a wider halo across processes
     w2, c2 = 700, 2
     x2 = rng.integers(-32768, 32768, size=4 * nproc * (1 << 13), dtype=np.int16)
-    x2d = jax.make_array_from_callback(
-        x2.shape, time_sharding(tmesh), lambda idx: x2[idx]
-    )
-    out_fr = sharded_moving_average(
-        x2d, w2, c2, mesh=tmesh, halo_impl="fused_ring"
-    )
-    want_fr = moving_average_golden(x2, w2, c2)
-    for shard in out_fr.addressable_shards:
-        np.testing.assert_array_equal(np.asarray(shard.data), want_fr[shard.index])
+    x2d = jax.make_array_from_callback(x2.shape, sharding, lambda idx: x2[idx])
+    out_w = sharded_moving_average(x2d, w2, c2, mesh=mesh)
+    want_w = moving_average_golden(x2, w2, c2)
+    for shard in out_w.addressable_shards:
+        np.testing.assert_array_equal(np.asarray(shard.data), want_w[shard.index])
 
     # --- (ch, t)-sharded receiver chain across processes (round 4): the
     # combined-halo ppermute path under a multi-controller mesh

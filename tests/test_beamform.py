@@ -2,7 +2,7 @@
 numpy oracles, end-to-end bearing accuracy, and the sharded batch path.
 
 North-star scope (the CUDA reference has no array processing; SURVEY.md
-§2) — validates the MXU covariance, embedded Cholesky/eigh subspace math
+§2) — validates the covariance, embedded Cholesky/eigh subspace math
 and the dp batch story.
 """
 

@@ -1,10 +1,9 @@
-"""Direct (banded-MXU conv) correlate path vs scipy/numpy and the FFT path.
+"""Direct (banded conv) correlate path vs scipy/numpy and the FFT path.
 
 Round-4 addition: ops.correlate grew a ``method='direct'`` spelling that
 lowers the reversed (conjugated) template onto ops.fir.blocked_causal_conv
 — the radar matched filter's fast path (the FFT path runs three padded
-pow2 transforms regardless of template length). Parity here is CPU; the
-on-chip rows live in benchmarks/r4_correlate_direct_ab.py.
+pow2 transforms regardless of template length). Parity here is on the CPU.
 """
 
 from __future__ import annotations

@@ -132,7 +132,7 @@ def test_float_rate_snaps_to_exact_rational():
 
 @pytest.mark.parametrize("rate", [(7, 3), (3, 7), (160, 147), (441, 2560), 1.5])
 def test_matmul_path_matches_gather(rng, rate):
-    # the MXU phase-matrix spelling computes the identical schedule
+    # the phase-matrix spelling computes the identical schedule
     from digital_signal_processsing_tpu.ops.farrow import (
         MATMUL_MAX_PRODUCT,
         as_rational_rate,
@@ -152,10 +152,10 @@ def test_auto_picks_matmul_within_envelope(rng):
     x = rng.normal(size=4096).astype(np.float32)
     resample_farrow(x, (160, 147))
     assert last_choice("resample_farrow") == "matmul"
-    # snaps to a ~2^16 fraction beyond the envelope: the round-3 segment
-    # kernel (the gather spelling stays opt-in as the schedule oracle)
+    # snaps to a ~2^16 fraction beyond the envelope: the exact pointwise
+    # gather schedule
     resample_farrow(x, np.pi / 3)
-    assert last_choice("resample_farrow") == "segmented"
+    assert last_choice("resample_farrow") == "gather"
 
 
 @pytest.mark.parametrize("rate", [(160, 147), (3, 7), (441, 2560), 1.5])
@@ -189,72 +189,51 @@ def test_matmul_streaming_matches_one_shot(rng, rate):
 
 
 class TestFarrowSegmented:
-    """Round-3 scalar-prefetch segment kernel: exact schedule beyond the
-    phase-matrix envelope (VERDICT r2 item 7)."""
+    """Exact schedules beyond the phase-matrix envelope, through the
+    public op, against the float64 mirror of the schedule."""
+
+    @staticmethod
+    def _check(x, up, down, tol=2e-5):
+        got = np.asarray(resample_farrow(x, (up, down)))
+        rows = np.atleast_2d(x)
+        want = np.stack(
+            [oracle_lagrange4(r, up, down, got.shape[-1]) for r in rows]
+        ).reshape(got.shape)
+        err = np.max(np.abs(got - want)) / np.max(np.abs(want))
+        assert err < tol, ((up, down), err)
 
     def test_matches_gather_oracle_beyond_envelope(self, rng):
-        from digital_signal_processsing_tpu.ops.farrow import (
-            MATMUL_MAX_PRODUCT,
-            resample_farrow,
-            resample_farrow_segmented,
-        )
+        from digital_signal_processsing_tpu.ops.farrow import MATMUL_MAX_PRODUCT
 
         up, down = 46337, 65521  # primes; far beyond the matrix envelope
         assert up * down > MATMUL_MAX_PRODUCT
-        x = rng.normal(size=(2, 30_000)).astype(np.float32)
-        want = np.asarray(resample_farrow(x, (up, down), method="gather"))
-        got = np.asarray(resample_farrow_segmented(x, (up, down)))
-        assert got.shape == want.shape
-        err = np.max(np.abs(got - want)) / np.max(np.abs(want))
-        assert err < 2e-5, err
+        self._check(rng.normal(size=(2, 30_000)).astype(np.float32), up, down)
 
     def test_matches_matmul_in_envelope(self, rng):
-        from digital_signal_processsing_tpu.ops.farrow import (
-            resample_farrow,
-            resample_farrow_segmented,
-        )
-
         x = rng.normal(size=20_000).astype(np.float32)
         for rate in [(3, 7), (48000, 44100)]:
+            up, down = as_rational_rate(rate)
             want = np.asarray(resample_farrow(x, rate, method="matmul"))
-            got = np.asarray(resample_farrow_segmented(x, rate))
+            got = np.asarray(resample_farrow(x, rate, method="gather"))
             err = np.max(np.abs(got - want)) / np.max(np.abs(want))
             assert err < 2e-5, (rate, err)
 
     def test_auto_routes_beyond_envelope_to_segmented(self, rng):
-        from digital_signal_processsing_tpu.ops.farrow import resample_farrow
         from digital_signal_processsing_tpu.utils.dispatch import last_choice
 
         x = rng.normal(size=10_000).astype(np.float32)
         resample_farrow(x, (46337, 65521))
-        assert last_choice("resample_farrow") == "segmented"
+        assert last_choice("resample_farrow") == "gather"
         resample_farrow(x, (48000, 44100))
         assert last_choice("resample_farrow") == "matmul"
 
     def test_rate_sweep_same_structure(self, rng):
-        # round-3: rates ride scalar prefetch and the grid is bucketed, so
-        # a sweep of nearby rates shares one kernel STRUCTURE — every rate
-        # must still match its own gather-oracle schedule exactly
-        from digital_signal_processsing_tpu.ops.farrow import (
-            resample_farrow,
-            resample_farrow_segmented,
-        )
-
+        # a sweep of nearby exact rates: each matches its own schedule
         x = rng.normal(size=(2, 24_000)).astype(np.float32)
         for up, down in [(46337, 65521), (46349, 65521), (46351, 65537)]:
-            want = np.asarray(resample_farrow(x, (up, down), method="gather"))
-            got = np.asarray(resample_farrow_segmented(x, (up, down)))
-            assert got.shape == want.shape
-            err = np.max(np.abs(got - want)) / np.max(np.abs(want))
-            assert err < 2e-5, ((up, down), err)
+            self._check(x, up, down)
 
     def test_segment_validation(self, rng):
-        import pytest as _pytest
-
-        from digital_signal_processsing_tpu.ops.farrow import (
-            resample_farrow_segmented,
-        )
-
         x = rng.normal(size=10_000).astype(np.float32)
-        with _pytest.raises(ValueError, match="multiple of 128"):
-            resample_farrow_segmented(x, (3, 7), segment=100)
+        with pytest.raises(ValueError, match="unknown method"):
+            resample_farrow(x, (3, 7), method="segmented")

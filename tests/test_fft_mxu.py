@@ -1,4 +1,4 @@
-"""MXU-factorized DFT: parity with numpy FFT and the direct conv."""
+"""matmul-factorized DFT: parity with numpy FFT and the direct conv."""
 
 import numpy as np
 import pytest
@@ -68,7 +68,7 @@ def test_fir_filter_auto_uses_mxu_engine(rng):
     assert last_choice("fir_filter") == "direct"
     h = rng.normal(size=8193).astype(np.float32) / 91
     y = np.asarray(fir_filter(x, h))
-    assert last_choice("fir_filter") == "overlap_save_fused"
+    assert last_choice("fir_filter") == "overlap_save"
     from digital_signal_processsing_tpu.ops.fir import fir_direct
 
     want = np.asarray(fir_direct(x, h))
@@ -81,37 +81,30 @@ def test_pick_factored_nfft():
 
 
 def test_fused_matches_composed_and_traced_fallback(rng):
+    # the explicit dense-DFT engine matches cuFFT-style overlap-save; traced
+    # taps take the same auto route as concrete ones
     import jax
 
-    from digital_signal_processsing_tpu.ops.fft_mxu import (
-        overlap_save_fused,
-        overlap_save_mxu,
-    )
-    from digital_signal_processsing_tpu.ops.fir import fir_filter
+    from digital_signal_processsing_tpu.ops.fft_mxu import overlap_save_mxu
+    from digital_signal_processsing_tpu.ops.fir import fir_filter, fir_overlap_save
     from digital_signal_processsing_tpu.utils.dispatch import last_choice
 
     x = rng.normal(size=(2, 30_000)).astype(np.float32)
     h = rng.normal(size=8193).astype(np.float32) / 91
-    a = np.asarray(overlap_save_fused(x, h, block=24448))
+    a = np.asarray(fir_overlap_save(x, h, block=24448))
     b = np.asarray(overlap_save_mxu(x, h, block=24448))
     assert np.max(np.abs(a - b)) / np.max(np.abs(b)) < 1e-5
-    # traced taps cannot bake the frequency response -> composed path
     jax.jit(lambda v, t: fir_filter(v, t))(x, h).block_until_ready()
-    assert last_choice("fir_filter") == "overlap_save_mxu"
+    assert last_choice("fir_filter") == "overlap_save"
 
 
 def test_fused_nfft_cap(rng):
-    from digital_signal_processsing_tpu.ops.fft_mxu import overlap_save_fused
     from digital_signal_processsing_tpu.ops.fir import fir_direct, fir_filter
 
-    # round-3: nfft in (32768, 2^20] now routes to the 3-factor kernel
-    # instead of raising; only past-the-cap sizes reject
-    with pytest.raises(ValueError, match="no 3-factor split"):
-        overlap_save_fused(
-            np.zeros(3_000_000, np.float32), np.ones(8192, np.float32),
-            block=1_091_584,
-        )
-    # the auto dispatcher shrinks the block instead
+    # the removed fused engine's name is an unknown method
+    with pytest.raises(ValueError, match="unknown FIR method"):
+        fir_filter(np.zeros(4096, np.float32), np.ones(8192, np.float32),
+                   method="overlap_save_fused")
     x = rng.normal(size=60_000).astype(np.float32)
     h = rng.normal(size=8192).astype(np.float32) / 91
     y = np.asarray(fir_filter(x, h))
@@ -120,34 +113,32 @@ def test_fused_nfft_cap(rng):
 
 
 def test_fused3_long_taps_match_scipy(rng):
-    # round-3: nfft > 32768 routes to the 3-factor kernel (2-D dots only;
-    # sublane DFT + unrolled A1-point lane-slice DFT + lane DFT)
+    # long taps through the explicit dense-DFT overlap-save engine
     import scipy.signal as sps
 
-    from digital_signal_processsing_tpu.ops.fft_mxu import overlap_save_fused
+    from digital_signal_processsing_tpu.ops.fir import fir_filter
 
     x = rng.normal(size=(2, 120_000)).astype(np.float32)
     h = (rng.normal(size=16_384) / 128).astype(np.float32)
-    got = np.asarray(overlap_save_fused(x, h, block=49_152))  # nfft 65536
+    got = np.asarray(fir_filter(x, h, method="overlap_save_mxu"))
     want = sps.lfilter(h.astype(np.float64), [1.0], x.astype(np.float64))
     err = np.max(np.abs(got - want)) / np.max(np.abs(want))
     assert err < 1e-4, err
 
 
 def test_fused3_block_alignment_rejected(rng):
-    from digital_signal_processsing_tpu.ops.fft_mxu import overlap_save_fused
+    from digital_signal_processsing_tpu.ops.fft_mxu import _pick_large_factor
 
-    with pytest.raises(ValueError, match="block %"):
-        overlap_save_fused(
-            np.zeros(100_000, np.float32),
-            np.zeros(16_384, np.float32),
-            block=40_832,  # a 128 multiple off the 1024 grid for A1=8
-        )
+    # a length with no balanced 128-multiple split is rejected up front
+    # (65537 is prime); checked on the host, nothing is allocated
+    with pytest.raises(ValueError, match="factorization"):
+        _pick_large_factor(128 * 128 * 65537)
+    with pytest.raises(ValueError, match="16384"):
+        _pick_large_factor(128 * 127)
 
 
 def test_auto_dispatch_long_taps_stay_fused(rng):
-    # round-3: k past the 2-factor envelope routes to the 3-factor fused
-    # kernel instead of falling back to the HBM-bound composed path
+    # k past the crossover routes to overlap-save on jnp.fft
     import scipy.signal as sps
 
     from digital_signal_processsing_tpu.ops.fir import fir_filter
@@ -156,7 +147,7 @@ def test_auto_dispatch_long_taps_stay_fused(rng):
     x = rng.normal(size=(2, 100_000)).astype(np.float32)
     h = (rng.normal(size=16_384) / 128).astype(np.float32)
     got = np.asarray(fir_filter(x, h))
-    assert last_choice("fir_filter") == "overlap_save_fused"
+    assert last_choice("fir_filter") == "overlap_save"
     want = sps.lfilter(h.astype(np.float64), [1.0], x.astype(np.float64))
     err = np.max(np.abs(got - want)) / np.max(np.abs(want))
     assert err < 1e-4, err

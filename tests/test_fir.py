@@ -138,9 +138,9 @@ def _conv_spatial_widths(jaxpr):
 )
 def test_fold_decision_bounds_conv_width_at_pathological_shapes(shape, k):
     # round-3 VERDICT item 4 pin: the conv-planner compile pathology is
-    # driven by per-row frame width (measured on v5e: (32, 2.1M) bare conv
-    # = 479 s of COMPILE vs (64, 1.05M) = 11 s for identical work). The
-    # TPU planner isn't reachable from CI, so pin the CAUSE: at the
+    # driven by per-row frame width (wide rows compiled for minutes on the
+    # earlier accelerator, where half-width rows of identical work took
+    # seconds). Pin the CAUSE: at the
     # pathological planar shapes the traced program must never contain a
     # conv whose per-row frame count exceeds the folded bound.
     import jax

@@ -10,9 +10,8 @@ import pytest
 from digital_signal_processsing_tpu.golden import moving_average_golden
 from digital_signal_processsing_tpu.ops import moving_average
 from digital_signal_processsing_tpu.ops.fir import fir_direct
-from digital_signal_processsing_tpu.ops.pallas_scan import (
-    windowed_averager_packed,
-    windowed_supported,
+from digital_signal_processsing_tpu.ops.pallas_windowed import (
+    windowed_average_pallas,
 )
 from digital_signal_processsing_tpu.ops.streaming import (
     moving_average_chunk,
@@ -32,12 +31,14 @@ def test_fuzz_averager_paths(seed):
     x = rng.integers(-32768, 32768, size=n, dtype=np.int16)
     want = moving_average_golden(x, w, c)
 
-    for m in ("windowed", "scan", "xla_scan"):
+    for m in ("auto", "xla_direct", "xla_scan"):
         np.testing.assert_array_equal(
             np.asarray(moving_average(x, w, c, method=m)), want, err_msg=m
         )
-    if c % 2 == 0 and n % 256 == 0 and windowed_supported(w, c):
-        got = np.asarray(windowed_averager_packed(x.view(np.int32), w, c))
+    got = np.asarray(windowed_average_pallas(x, w, c, interpret=True))
+    np.testing.assert_array_equal(got, want, err_msg="kernel")
+    if c % 2 == 0:
+        got = np.asarray(moving_average(x.view(np.int32), w, c))
         np.testing.assert_array_equal(got.view(np.int16), want)
     if frames > 2:
         cut = int(rng.integers(1, frames)) * c
@@ -46,6 +47,13 @@ def test_fuzz_averager_paths(seed):
         st, y2 = moving_average_chunk(st, x[cut:], w, c)
         np.testing.assert_array_equal(
             np.concatenate([np.asarray(y1), np.asarray(y2)]), want
+        )
+        # the same split through the seeded kernel
+        k1 = windowed_average_pallas(x[:cut], w, c, interpret=True)
+        tail = np.concatenate([np.zeros(w * c, np.int16), x[:cut]])[-w * c :]
+        k2 = windowed_average_pallas(x[cut:], w, c, seed=tail, interpret=True)
+        np.testing.assert_array_equal(
+            np.concatenate([np.asarray(k1), np.asarray(k2)]), want
         )
 
 

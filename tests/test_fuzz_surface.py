@@ -51,15 +51,14 @@ def test_fuzz_sosfilt_tv_vs_sample_scan(seed):
         -1,
     ).astype(np.float32)
     x = rng.standard_normal(n).astype(np.float32)
-    tile = [2, 4][rng.integers(2)]
-    y_pallas = np.asarray(iir.sosfilt_tv(sos_t, x, tile_rows=tile))
+    y_scan = np.asarray(iir.sosfilt_tv(sos_t, x))
     # the per-sample XLA chunk scan is the independent anchor
     _, y_xla = iir._sosfilt_tv_chunk_xla(
         jnp.zeros((nsec, 1, 2)), jnp.asarray(sos_t), jnp.asarray(x)
     )
     y_xla = np.asarray(y_xla).reshape(-1)
     scale = max(1.0, np.max(np.abs(y_xla)))
-    assert np.max(np.abs(y_pallas - y_xla)) / scale < 2e-4, (n, nsec, tile)
+    assert np.max(np.abs(y_scan - y_xla)) / scale < 2e-4, (n, nsec)
 
 
 @pytest.mark.parametrize("seed", range(6))
@@ -164,20 +163,14 @@ def test_fuzz_beamform_music_vs_complex_oracle(seed):
 
 @pytest.mark.parametrize("seed", range(2))
 def test_fuzz_compact_row_pass_vs_scipy(seed):
-    # cheap randomized sweep; the deterministic {vpu,mxu}x{128,256} grid
-    # lives in test_iir.py::test_compact_row_pass_parity
+    # cheap randomized sweep; the deterministic grid lives in
+    # test_iir.py::TestSosfiltFused::test_compact_row_pass_parity
     rng = np.random.default_rng(7000 + seed)
     nsec = int(rng.integers(1, 5))
     sos = sps.butter(2 * nsec, float(rng.uniform(0.05, 0.9)), output="sos")
     n = 128 * 128 + int(rng.integers(0, 2000))
     x = rng.standard_normal(n).astype(np.float32)
-    lane = ["vpu", "mxu"][rng.integers(2)]
-    got = np.asarray(
-        iir.sosfilt_pallas_fused(
-            sos.astype(np.float32), x, tile_rows=128,
-            lane_pass=lane, row_pass="compact",
-        )
-    )
+    got = np.asarray(iir.sosfilt(sos.astype(np.float32), x))
     want = sps.sosfilt(sos, x.astype(np.float64))
     sc = np.max(np.abs(want)) + 1e-9
-    assert np.max(np.abs(got - want)) / sc < 1e-4, (nsec, lane)
+    assert np.max(np.abs(got - want)) / sc < 1e-4, nsec

@@ -69,7 +69,6 @@ def test_smoke_sweep(tmp_path):
         sizes=[20_000],
         grades=[4],
         variants=["xla_scan", "scan", "golden_cpu"],
-        tile_rows_list=[None],
         out_csv=str(out),
         warmup=0,
         rounds=1,

@@ -138,7 +138,7 @@ def test_iircomb_rejects_noninteger_teeth():
 
 def test_notch_kills_tone_on_device():
     # end-to-end: the notch biquad actually removes its tone through the
-    # TPU sosfilt path (lfilter -> ba_to_sos -> Pallas/XLA dispatch)
+    # sosfilt path (lfilter -> ba_to_sos -> the XLA scan)
     import jax.numpy as jnp
 
     from digital_signal_processsing_tpu.ops.iir import lfilter

@@ -164,9 +164,8 @@ def test_ar_psd_matches_analytic_ar2():
 
 
 def test_synthesis_methods_agree():
-    """Round-4: the two-pass Pallas engine vs the scan spelling vs the
-    float64 golden (the pallas path is auto's pick for frame_len % 8 == 0;
-    on-chip A/B in logs/r4_onchip/r4_lpc_ab.log)."""
+    """The refine engine (auto's pick) vs the scan spelling vs the float64
+    golden, at any frame length."""
     rng = np.random.default_rng(5)
     F, L, order = 9, 64, 12
     rows = []
@@ -179,26 +178,28 @@ def test_synthesis_methods_agree():
     ref = lpc.lpc_synthesis_ref(a, gain, e, L)
     scale = np.max(np.abs(ref))
     y_scan = np.asarray(lpc.lpc_synthesis(a, gain, e, L, method="scan"))
-    y_pal = np.asarray(lpc.lpc_synthesis(a, gain, e, L, method="pallas"))
+    y_ref = np.asarray(lpc.lpc_synthesis(a, gain, e, L, method="refine"))
     # f32 frame-parallel vs f64 sequential at 12 resonant poles: the
     # association divergence envelope is wider than the order-8 golden
-    # test's 1e-3 (measured 1.8e-3 here for BOTH engines)
+    # test's 1e-3
     assert np.max(np.abs(y_scan - ref)) / scale < 5e-3
-    assert np.max(np.abs(y_pal - ref)) / scale < 5e-3
-    assert np.max(np.abs(y_pal - y_scan)) / scale < 1e-4
-    # non-multiple-of-8 frame_len: explicit pallas raises
+    assert np.max(np.abs(y_ref - ref)) / scale < 5e-3
+    # a frame length that is not a multiple of 8 runs as well
+    ref60 = lpc.lpc_synthesis_ref(a, gain, e[: F * 60], 60)
+    y60 = np.asarray(lpc.lpc_synthesis(a, gain, e[: F * 60], 60, method="refine"))
+    assert np.max(np.abs(y60 - ref60)) / np.max(np.abs(ref60)) < 5e-3
+    # the removed kernel method is an unknown method
     import pytest as _pytest
 
-    with _pytest.raises(ValueError, match="multiple of"):
-        lpc.lpc_synthesis(a[:, :], gain, e[: F * 60], 60, method="pallas")
+    with _pytest.raises(ValueError, match="unknown method"):
+        lpc.lpc_synthesis(a, gain, e, L, method="pallas")
 
 
 def test_refine_beats_compose_at_resonant_poles():
-    """Round-4 accuracy finding: the f32 affine compose behind the
-    scan/pallas entry states loses digits for resonant polynomials (A^L
-    transient-growth cancellation — BENCH_NOTES "LPC compose
-    conditioning"); the refine path propagates states through the actual
-    recurrence and stays at the sequential-f32 floor."""
+    """The f32 affine compose behind the scan spelling's entry states loses
+    digits for resonant polynomials (A^L transient-growth cancellation);
+    the refine path propagates states through the actual recurrence and
+    stays at the sequential-f32 floor."""
     rng = np.random.default_rng(9)
     F, L, order = 6, 64, 8
     rows = []
@@ -215,7 +216,7 @@ def test_refine_beats_compose_at_resonant_poles():
         / scale
     )
     err_comp = (
-        np.max(np.abs(np.asarray(lpc.lpc_synthesis(a, gain, e, L, method="pallas")) - ref))
+        np.max(np.abs(np.asarray(lpc.lpc_synthesis(a, gain, e, L, method="scan")) - ref))
         / scale
     )
     assert err_ref < 1e-4, err_ref

@@ -2,7 +2,7 @@
 CA-CFAR parity vs an explicit-loop oracle, and end-to-end detection.
 
 North-star scope (the CUDA reference has no radar models; SURVEY.md §6) —
-validates the framework's MXU correlator, window catalog and 2-D box-sum
+validates the framework's correlator, window catalog and 2-D box-sum
 machinery composed into a sensing chain.
 """
 
@@ -89,7 +89,7 @@ def test_correlate_complex_matches_numpy(mode):
 
 
 def test_doppler_mxu_dft_matches_fft_oracle():
-    """The dense MXU DFT spelling (window + fftshift folded into the
+    """The dense matmul DFT spelling (window + fftshift folded into the
     matrix) equals fftshift(fft(w*x)) |.|^2 computed in float64."""
     from digital_signal_processsing_tpu.ops.fft import get_window
 

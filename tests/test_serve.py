@@ -1,4 +1,4 @@
-"""Serving loop: multi-WAV stream -> chunked TPU compute -> streaming sink."""
+"""Serving loop: multi-WAV stream -> chunked device compute -> streaming sink."""
 
 import numpy as np
 import pytest

@@ -31,22 +31,44 @@ def mesh_2x4():
     return make_mesh(n_time=4, n_channel=2)
 
 
+@pytest.fixture
+def gpu_dispatch(monkeypatch):
+    """Route the shards the way a GPU backend does: the windowed Triton
+    kernel, here in the Pallas interpreter."""
+    import functools
+    import sys
+
+    from digital_signal_processsing_tpu.ops import pallas_windowed
+
+    ma = sys.modules["digital_signal_processsing_tpu.ops.moving_average"]
+    jax.clear_caches()  # drop programs traced with the CPU dispatch
+    monkeypatch.setattr(
+        ma, "auto_method", functools.partial(ma.auto_method, platform="gpu")
+    )
+    monkeypatch.setattr(
+        pallas_windowed,
+        "windowed_average_pallas",
+        functools.partial(pallas_windowed.windowed_average_pallas, interpret=True),
+    )
+    yield
+    jax.clear_caches()
+
+
 @pytest.mark.parametrize(
-    "method,use_pallas",
-    [("windowed", True), ("scan", True), ("scan", False)],
+    "method,engine",
+    [("windowed", "auto"), ("windowed", "kernel"), ("scan", "auto")],
 )
 @pytest.mark.parametrize("window,channels", [(16, 2), (257, 2), (1000, 1)])
 def test_sharded_average_parity(
-    rng, mesh8, method, use_pallas, window, channels
+    rng, mesh8, request, method, engine, window, channels
 ):
+    if engine == "kernel":
+        request.getfixturevalue("gpu_dispatch")
     x = make_interleaved(rng, 40960 // channels, channels)
     want = moving_average_golden(x, window, channels)
     xd = jax.device_put(x, time_sharding(mesh8))
     got = np.asarray(
-        sharded_moving_average(
-            xd, window, channels, mesh=mesh8, use_pallas=use_pallas,
-            method=method,
-        )
+        sharded_moving_average(xd, window, channels, mesh=mesh8, method=method)
     )
     np.testing.assert_array_equal(got, want)
 
@@ -63,13 +85,13 @@ def test_sharded_average_unsharded_input(rng, mesh8):
     # works without pre-sharded input (jit re-shards)
     x = make_interleaved(rng, 8192, 2)
     want = moving_average_golden(x, 64, 2)
-    got = np.asarray(sharded_moving_average(x, 64, 2, mesh=mesh8, use_pallas=False))
+    got = np.asarray(sharded_moving_average(x, 64, 2, mesh=mesh8))
     np.testing.assert_array_equal(got, want)
 
 
 def test_sharded_cumsum_parity(rng, mesh8):
     x = make_interleaved(rng, 20480, 2)
-    got = np.asarray(sharded_cumsum(x, 2, mesh=mesh8, use_pallas=False))
+    got = np.asarray(sharded_cumsum(x, 2, mesh=mesh8))
     want = np.cumsum(x.reshape(-1, 2).astype(np.int64), axis=0).astype(
         np.int32
     ).reshape(-1)
@@ -89,7 +111,7 @@ def test_carry_impls_bit_exact(rng, mesh8, carry_impl):
     )
     np.testing.assert_array_equal(got, want)
     cs = np.asarray(
-        sharded_cumsum(x, 2, mesh=mesh8, use_pallas=False, carry_impl=carry_impl)
+        sharded_cumsum(x, 2, mesh=mesh8, carry_impl=carry_impl)
     )
     want_cs = (
         np.cumsum(x.reshape(-1, 2).astype(np.int64), axis=0)
@@ -106,7 +128,7 @@ def test_carry_impls_bit_exact(rng, mesh8, carry_impl):
 def test_sharded_halo_too_big_rejected(rng, mesh8):
     x = make_interleaved(rng, 4096, 2)
     with pytest.raises(ValueError, match="halo|shard"):
-        sharded_moving_average(x, 4000, 2, mesh=mesh8, use_pallas=False)
+        sharded_moving_average(x, 4000, 2, mesh=mesh8)
 
 
 def test_sharded_fir_parity(rng, mesh8):
@@ -129,9 +151,8 @@ def test_sharded_fir_channels_and_time(rng, mesh_2x4):
 
 
 def test_sharded_fir_auto_ladder(rng, mesh_2x4):
-    # round-3: method='auto' routes each shard through the single-chip
-    # fir_filter ladder; concrete taps stay static via the cached closure
-    # so the FUSED overlap-save engine fires above the crossover
+    # method='auto' routes each shard through the single-device
+    # fir_filter ladder: overlap-save above the crossover
     from digital_signal_processsing_tpu.ops.fir import FIR_FFT_CROSSOVER
     from digital_signal_processsing_tpu.utils.dispatch import last_choice
 
@@ -148,7 +169,7 @@ def test_sharded_fir_auto_ladder(rng, mesh_2x4):
     want_b = np.asarray(fir_direct(x, taps_big))
     scale = np.abs(want_b).max()
     assert np.abs(got_b - want_b).max() / scale < 1e-4
-    assert last_choice("fir_filter") == "overlap_save_fused"
+    assert last_choice("fir_filter") == "overlap_save"
 
 
 def test_weak_scaling_shapes(rng, mesh8):
@@ -156,7 +177,7 @@ def test_weak_scaling_shapes(rng, mesh8):
     # output sharding matches input sharding
     x = make_interleaved(rng, 8192, 2)
     xd = jax.device_put(x, time_sharding(mesh8))
-    out = sharded_moving_average(xd, 16, 2, mesh=mesh8, use_pallas=False)
+    out = sharded_moving_average(xd, 16, 2, mesh=mesh8)
     assert out.sharding.spec == time_sharding(mesh8).spec
 
 
@@ -229,36 +250,37 @@ def test_pipelined_fir_cascade(rng, mesh8):
     np.testing.assert_allclose(got_stream, want, rtol=1e-4, atol=1e-5)
 
 
-def test_pallas_ring_halo_matches_ppermute(rng):
-    # the hand-rolled RDMA ring must be a drop-in for the XLA collective
-    # (1-D time mesh: Pallas dma_start supports one named axis only)
-    from digital_signal_processsing_tpu.parallel.mesh import make_time_mesh
-
-    mesh = make_time_mesh()
+def test_pallas_ring_halo_matches_ppermute(rng, mesh8, gpu_dispatch):
+    # the seeded GPU kernel behind the ppermute halo is a drop-in for the
+    # XLA sliding recurrence
     x = make_interleaved(rng, 20480, 2)
     want = moving_average_golden(x, 257, 2)
-    got = np.asarray(
-        sharded_moving_average(
-            x, 257, 2, mesh=mesh, use_pallas=False, halo_impl="pallas_ring"
+    got = np.asarray(sharded_moving_average(x, 257, 2, mesh=mesh8))
+    np.testing.assert_array_equal(got, want)
+
+
+def test_ring_shift_right_semantics(rng, mesh8):
+    # the windowed halo: each shard receives its left neighbour's tail,
+    # device 0 the zeros ppermute defines (the causal zero halo)
+    from jax.sharding import PartitionSpec as P
+
+    def body(xs):
+        n = jax.lax.axis_size("t")
+        return jax.lax.ppermute(
+            xs[xs.shape[0] - 256 :], "t", perm=[(d, d + 1) for d in range(n - 1)]
         )
+
+    x = rng.normal(size=(8 * 1024,)).astype(np.float32)
+    fn = jax.shard_map(body, mesh=mesh8, in_specs=P("t"), out_specs=P("t"))
+    got = np.asarray(jax.jit(fn)(x)).reshape(8, 256)
+    want = np.concatenate(
+        [np.zeros((1, 256), np.float32), x.reshape(8, 1024)[:-1, -256:]]
     )
     np.testing.assert_array_equal(got, want)
 
 
-def test_ring_shift_right_semantics(rng):
-    from digital_signal_processsing_tpu.parallel.mesh import make_time_mesh
-    from digital_signal_processsing_tpu.parallel.ring_pallas import ring_shift_right
-
-    mesh = make_time_mesh()
-    x = rng.normal(size=(8 * 256,)).astype(np.float32)
-    got = np.asarray(ring_shift_right(x, mesh))
-    want = np.concatenate([np.zeros(256, np.float32), x[:-256]])
-    np.testing.assert_array_equal(got, want)
-
-
 def test_sharded_giant_halo_falls_back_to_scan(rng):
-    # window*channels beyond the windowed kernel's VMEM envelope must route
-    # to the carry decomposition, not crash at trace time
+    # a halo of 2^20 samples per shard stays exact
     c, w = 128, 8192
     x = make_interleaved(rng, 128 * 8192 * 16 // c, c)
     from digital_signal_processsing_tpu.parallel import make_mesh
@@ -269,17 +291,19 @@ def test_sharded_giant_halo_falls_back_to_scan(rng):
 
 
 def test_sharded_use_pallas_false_respected(rng, mesh8):
-    # the explicit pure-XLA opt-out must not dispatch a Pallas kernel
+    # the scan-carry path is plain XLA: no kernel in its program
     x = make_interleaved(rng, 20480, 2)
-    got = np.asarray(
-        sharded_moving_average(x, 64, 2, mesh=mesh8, use_pallas=False)
-    )
+    got = np.asarray(sharded_moving_average(x, 64, 2, mesh=mesh8, method="scan"))
     np.testing.assert_array_equal(got, moving_average_golden(x, 64, 2))
+    jaxpr = jax.make_jaxpr(
+        lambda v: sharded_moving_average(v, 64, 2, mesh=mesh8, method="scan")
+    )(x)
+    assert "pallas_call" not in str(jaxpr)
 
 
 def test_sharded_packed_windowed_bit_exact(rng, mesh8):
-    # packed transport end-to-end on the mesh: int32 pair shards, packed
-    # halo ppermute, packed kernel — output view matches golden
+    # packed transport end-to-end on the mesh: int32 pair shards are
+    # unpacked on the device — output view matches golden
     from digital_signal_processsing_tpu.parallel.sharded_scan import (
         sharded_moving_average,
     )
@@ -300,98 +324,33 @@ def test_sharded_packed_rejects_bad_shapes(rng, mesh8):
         sharded_moving_average,
     )
 
-    with pytest.raises(ValueError, match="packed"):
-        # odd channel count has no packed plane decomposition
+    with pytest.raises(ValueError, match="divide"):
+        # 16384 samples are no whole number of 3-channel frames per shard
         sharded_moving_average(
             np.zeros(8 * 1024, np.int32), 16, 3, mesh=mesh8
         )
 
 
-def test_fused_ring_windowed_bit_exact(rng, mesh8):
-    # the fused kernel (in-kernel halo RDMA overlapped with interior tiles)
-    # must match golden bit-exactly — same contract as the ppermute path
-    import functools
+@pytest.mark.parametrize(
+    "w,c,n", [(1024, 2, 8 * (1 << 16)), (16, 1, 8 * 4096), (700, 4, 8 * (1 << 15))]
+)
+def test_fused_ring_windowed_bit_exact(rng, mesh8, gpu_dispatch, w, c, n):
+    # the seeded kernel on every shard matches golden bit-exactly
+    from digital_signal_processsing_tpu.utils.dispatch import last_choice
 
-    from digital_signal_processsing_tpu.parallel.mesh import make_time_mesh
-    from digital_signal_processsing_tpu.parallel.ring_pallas import (
-        fused_ring_windowed_shard,
-    )
-    from jax.sharding import PartitionSpec as P
-
-    tmesh = make_time_mesh()  # Pallas remote DMA needs a 1-named-axis mesh
-    for w, c, n in [(1024, 2, 8 * (1 << 16)), (16, 1, 8 * 4096), (700, 4, 8 * (1 << 15))]:
-        x = make_interleaved(rng, n, c)
-        fn = jax.shard_map(
-            functools.partial(fused_ring_windowed_shard, window=w, channels=c),
-            mesh=tmesh,
-            in_specs=P("t"),
-            out_specs=P("t"),
-            check_vma=False,
-        )
-        got = np.asarray(jax.jit(fn)(x))
-        np.testing.assert_array_equal(got, moving_average_golden(x, w, c))
-
-
-def test_fused_ring_single_device_degenerate(rng):
-    # ndev=1: the ring wraps to self; device 0 zero-halo semantics hold
-    import functools
-
-    from digital_signal_processsing_tpu.parallel.ring_pallas import (
-        fused_ring_windowed_shard,
-    )
-    from jax.sharding import PartitionSpec as P
-
-    mesh1 = jax.make_mesh((1,), ("t",), devices=jax.devices()[:1])
-    w, c = 300, 2
-    x = make_interleaved(rng, 1 << 15, c)
-    fn = jax.shard_map(
-        functools.partial(fused_ring_windowed_shard, window=w, channels=c),
-        mesh=mesh1,
-        in_specs=P("t"),
-        out_specs=P("t"),
-        check_vma=False,
-    )
-    got = np.asarray(jax.jit(fn)(x))
+    x = make_interleaved(rng, n // c, c)
+    got = np.asarray(sharded_moving_average(x, w, c, mesh=mesh8))
+    assert last_choice("moving_average_chunk") == "windowed"
     np.testing.assert_array_equal(got, moving_average_golden(x, w, c))
 
 
-def test_collective_id_collision_detected_in_one_trace():
-    # two DIFFERENT ring exchanges hashing to one collective_id inside one
-    # traced program would cross-match DMA semaphores; the registry must
-    # raise at trace time (round-2 ADVICE). Same-key reuse stays legal.
-    import pytest
-
-    from digital_signal_processsing_tpu.parallel.ring_pallas import (
-        _check_collective_id_collision,
-    )
-
-    def same_key(x):
-        _check_collective_id_collision(400, "k1")
-        _check_collective_id_collision(400, "k1")
-        return x
-
-    jax.make_jaxpr(same_key)(np.float32(0))  # no raise
-
-    def colliding(x):
-        _check_collective_id_collision(401, "k1")
-        _check_collective_id_collision(401, "k2")
-        return x
-
-    with pytest.raises(ValueError, match="collision"):
-        jax.make_jaxpr(colliding)(np.float32(0))
-
-    def fresh_trace(x):
-        _check_collective_id_collision(402, "k3")
-        return x
-
-    # a DIFFERENT trace may legitimately reuse an id with another key
-    jax.make_jaxpr(fresh_trace)(np.float32(0))
-
-    def other_trace(x):
-        _check_collective_id_collision(402, "k4")
-        return x
-
-    jax.make_jaxpr(other_trace)(np.float32(0))  # no raise
+def test_fused_ring_single_device_degenerate(rng, gpu_dispatch):
+    # one device: the halo is ppermute's zeros, the stream start's halo
+    mesh1 = make_mesh(devices=jax.devices()[:1])
+    w, c = 300, 2
+    x = make_interleaved(rng, 1 << 15, c)
+    got = np.asarray(sharded_moving_average(x, w, c, mesh=mesh1))
+    np.testing.assert_array_equal(got, moving_average_golden(x, w, c))
 
 
 def test_sharded_sosfilt_tv_bit_equal(rng, mesh_2x4):
